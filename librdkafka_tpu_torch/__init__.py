@@ -1,0 +1,21 @@
+"""librdkafka_tpu_torch — the PyTorch / CUDA port of librdkafka_tpu.
+
+The port goes slice by slice beside the JAX package, which stays the
+reference it is held against.  This slice holds the layer that owns the
+device: the MessageSet v2 codec and its batched CRC offload.
+
+- ``utils``    — CRC32C/CRC32 tables and combines, varint, segmented buffers
+- ``protocol`` — protocol constants, MessageSet v2 and v0/v1 writer/reader
+- ``ops``      — native C++ CPU codec provider (ctypes), the GPU provider
+                 and its hand-written CUDA row kernel (``csrc/crc_rows.cu``)
+- ``client``   — the broker's writer phase and fetch verify, synchronous
+                 route (``write_batches`` / ``read_batches``)
+
+Entry points run on the card unless the caller passes ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"
+
+from .client.codec_phase import read_batches, write_batches  # noqa: F401
+from .ops.cpu import CpuCodecProvider  # noqa: F401
+from .ops.gpu import GpuCodecProvider  # noqa: F401

@@ -1,0 +1,147 @@
+"""The port's writer phase and fetch verify (client/codec_phase.py) held
+against the same flow through the JAX package: MsgsetWriterV2 +
+TpuCodecProvider on its synchronous route, compress_many → assemble →
+crc32c_many → patch_crc.  Exact equality on wire bytes."""
+import numpy as np
+import pytest
+import torch
+
+from librdkafka_tpu.ops import cpu as jax_cpu
+from librdkafka_tpu.ops.tpu import TpuCodecProvider
+from librdkafka_tpu.protocol import msgset as jms
+from librdkafka_tpu_torch import (CpuCodecProvider, GpuCodecProvider,
+                                  read_batches, write_batches)
+from librdkafka_tpu_torch.ops import crc32c_torch
+from librdkafka_tpu_torch.ops.packing import FrameBlob
+from librdkafka_tpu_torch.protocol import msgset as pms
+from librdkafka_tpu_torch.utils.crc import crc32c
+
+NOW = 1_700_000_000_000
+PARTS, RECORDS, SIZE = 8, 50, 1024
+
+
+def _values(seed: int = 0) -> list[list[bytes]]:
+    """Seeded, compressible 1 KB values (a few random words repeated)."""
+    rng = np.random.default_rng(seed)
+    words = [rng.integers(97, 123, 8, dtype=np.uint8).tobytes()
+             for _ in range(16)]
+    return [[b"".join(words[int(w)] for w in rng.integers(0, 16, SIZE // 8))
+             for _ in range(RECORDS)] for _ in range(PARTS)]
+
+
+def _jax_wire(values) -> list[bytes]:
+    prov = TpuCodecProvider(min_batches=1, warmup=False,
+                            min_transport_mb_s=0, pipeline_depth=0)
+    try:
+        writers = [jms.MsgsetWriterV2(codec="lz4").build(
+            [jms.Record(value=v) for v in vals], NOW) for vals in values]
+        comp = prov.compress_many("lz4", [w.records_bytes for w in writers])
+        regions = []
+        for w, c in zip(writers, comp):
+            if len(c) >= len(w.records_bytes):
+                c = None
+                w.codec = None
+            regions.append(w.assemble(c))
+        crcs = prov.crc32c_many(regions)
+        return [w.patch_crc(int(c)) for w, c in zip(writers, crcs)]
+    finally:
+        prov.close()
+
+
+def _parts(values):
+    return [[pms.Record(value=v) for v in vals] for vals in values]
+
+
+@pytest.fixture
+def gpu_cpu():
+    prov = GpuCodecProvider(device="cpu", min_batches=1)
+    yield prov
+    prov.close()
+
+
+def test_write_batches_equals_jax_flow(gpu_cpu):
+    values = _values()
+    before = crc32c_torch.launches
+    wire = write_batches(gpu_cpu, _parts(values), "lz4", NOW)
+    assert crc32c_torch.launches == before      # CPU path: no launch
+    assert wire == _jax_wire(values)
+    assert wire == write_batches(CpuCodecProvider(), _parts(values), "lz4",
+                                 NOW)
+
+
+def test_read_batches_round_trip_and_crc_mismatch(gpu_cpu):
+    values = _values(1)
+    wire = write_batches(gpu_cpu, _parts(values), "lz4", NOW)
+    recs = read_batches(gpu_cpu, wire)
+    assert [[r.value for r in part] for part in recs] == values
+    assert [r.offset for r in recs[0]] == list(range(RECORDS))
+    bad = bytearray(wire[3])
+    bad[-1] ^= 0x01
+    with pytest.raises(pms.CrcMismatch):
+        read_batches(gpu_cpu, wire[:3] + [bytes(bad)])
+
+
+def test_read_batches_legacy_and_mixed(gpu_cpu):
+    values = _values(2)
+    legacy = [pms.write_msgset_v01(
+        [pms.Record(value=v) for v in vals], magic=1, codec="lz4",
+        now_ms=NOW, compress_fn=jax_cpu.lz4_compress) for vals in values]
+    v2 = write_batches(gpu_cpu, _parts(values), "lz4", NOW)
+    recs = read_batches(gpu_cpu, legacy + [legacy[0] + v2[1]])
+    assert [[r.value for r in part] for part in recs[:PARTS]] == values
+    assert [r.value for r in recs[PARTS]] == values[0] + values[1]
+    bad = bytearray(legacy[2])
+    bad[-1] ^= 0x01
+    with pytest.raises(pms.CrcMismatch, match="legacy"):
+        read_batches(gpu_cpu, [bytes(bad)])
+
+
+def test_incompressible_and_uncompressed_batches(gpu_cpu):
+    rng = np.random.default_rng(3)
+    noise = [[rng.integers(0, 256, SIZE, dtype=np.uint8).tobytes()
+              for _ in range(4)]]
+    for codec in ("lz4", None):
+        wire = write_batches(gpu_cpu, _parts(noise), codec, NOW)
+        info = next(pms.iter_batches(wire[0]))[0]
+        assert info.codec is None                 # sent plain
+        assert wire == write_batches(CpuCodecProvider(), _parts(noise),
+                                     codec, NOW)
+        assert [r.value for r in read_batches(gpu_cpu, wire)[0]] == noise[0]
+
+
+def test_frame_blob_folds_the_batch_crc(gpu_cpu):
+    """A FrameBlob (fused compress→CRC frame) skips the CRC launch: its
+    per-part CRCs fold into the batch CRC the region scan would give."""
+    values = _values(4)[:2]
+
+    class FramingProvider(GpuCodecProvider):
+        def compress_many(self, codec, bufs, level=-1):
+            out = super().compress_many(codec, bufs, level)
+            return [FrameBlob([(c[:7], crc32c(c[:7])),
+                               (c[7:], crc32c(c[7:]))]) for c in out]
+
+        def crc32c_many(self, bufs):
+            raise AssertionError("FrameBlob batches need no CRC pass")
+
+    prov = FramingProvider(device="cpu", min_batches=1)
+    assert write_batches(prov, _parts(values), "lz4", NOW) == \
+        write_batches(gpu_cpu, _parts(values), "lz4", NOW)
+
+
+def test_min_batches_routes_small_calls_to_cpu(monkeypatch):
+    prov = GpuCodecProvider(device="cpu", min_batches=4)
+    calls = []
+    monkeypatch.setattr(crc32c_torch, "crc_rows",
+                        lambda *a: calls.append(a) or
+                        crc32c_torch.crc_rows_reference(*a))
+    assert prov.crc32c_many([b"a", b"b"]) == [crc32c(b"a"), crc32c(b"b")]
+    assert calls == []
+    prov.crc32c_many([b"a"] * 4)
+    assert len(calls) == 1
+    assert prov.fused_codec_id("lz4") is None
+
+
+def test_default_provider_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GpuCodecProvider()
