@@ -7,15 +7,20 @@ Run from the root of the repository, on a host with one CUDA card:
 
 Phase 1 prints the card and builds the kernels from the checkout's sources
 (csrc/crc_rows.cu with nvcc, ops/native/codec.cpp with g++).  Phase 2 holds
-the CRC row kernel against its plain PyTorch version and the CPU oracles
-(native crc32c, zlib.crc32) at B in {1, 8, 128, 256} rows of 64 KB, for
-crc32c rows, crc32 rows and mixed rows, and times it.  Phase 3 runs the
+the CRC kernel against its plain PyTorch versions and the CPU oracles
+(native crc32c, zlib.crc32), for crc32c, crc32 and mixed polynomials, and
+times it: through ``crc_rows`` at B in {1, 8, 128, 256} left-padded rows of
+64 KB (the TPU row contract), and through ``crc_segments`` on packed
+ragged segments: the main path's 64 regions, 256 x 65,536 B, random lengths
+of 0-200,000 B at unaligned offsets, and 61,440 x 1 KB.  Phase 3 runs the
 producer writer phase and the consumer fetch verify (write_batches /
 read_batches) through GpuCodecProvider at the shape of BASELINE.json
 config 5: 64 partitions, each one lz4 batch of 960 records x 1,024 B; the
 wire bytes must equal the CPU provider's, a flipped byte must raise
-CrcMismatch, and a legacy leg runs 64 MsgVer1 lz4 wrappers through
-crc32_many.  Any mismatch exits non-zero.
+CrcMismatch, a legacy leg runs 64 MsgVer1 lz4 wrappers through crc32_many,
+and the bytes copied to the card must be the regions' own plus the
+metadata.  A last leg verifies an uncompressed MsgVer1 fetch of the same
+64 x 960 x 1 KB (61,440 legacy CRC regions).  Any mismatch exits non-zero.
 
 The last two lines of standard output are a ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -40,6 +45,7 @@ from librdkafka_tpu_torch.ops import cpu as native
 from librdkafka_tpu_torch.ops import crc32c_torch as crc
 from librdkafka_tpu_torch.ops.packing import pad_left
 from librdkafka_tpu_torch.protocol.msgset import (CrcMismatch, Record,
+                                                  iter_legacy_crc_regions,
                                                   write_msgset_v01)
 from librdkafka_tpu_torch.protocol.proto import V2_OF_Attributes
 
@@ -94,6 +100,22 @@ def kernel_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def b2b_ms(fn, n: int = 50) -> float:
+    """Device time per call of ``fn`` over ``n`` calls back to back
+    between two CUDA events (L2 warm), which spreads the events' own
+    cost over the calls."""
+    fn()
+    torch.cuda._sleep(1_000_000)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
 def host_ms(fn, reps: int = 5) -> float:
     """Median host-clock time of ``fn`` ending in a device sync."""
     times = []
@@ -131,6 +153,22 @@ def bound(rows: int, n: int, polys: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def seg_bound(offs, lens, polys: int) -> tuple[float, str]:
+    """Least time for the segment kernel's work on these inputs: the real
+    bytes read once, plus the metadata (a 16 B descriptor a tile, sel
+    4 B a segment), the constants of the polynomials used and the outputs
+    (8 B a segment), over HBM; vs 2 ALU ops (lookup + xor) per real
+    byte."""
+    lens = np.asarray(lens, np.int64)
+    tiles = crc.plan_tiles(np.asarray(offs, np.int64), lens)
+    real = int(lens.sum())
+    nbytes = (real + 12 * len(lens) + 16 * len(tiles)
+              + polys * crc._kernel_consts("crc32c").nbytes)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * real / ALU_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def rows_for(bufs, polys_per_row):
     data, lens = pad_left(bufs, crc.BLOCK)
     terms = np.array([crc._term_host(int(n), p)
@@ -138,6 +176,27 @@ def rows_for(bufs, polys_per_row):
     sel = np.array([crc.POLYS.index(p) for p in polys_per_row],
                    dtype=np.int32)
     return data, terms, sel
+
+
+def pack(bufs, rng=None):
+    """Join ``bufs`` into one flat array (with random gaps of 1-37 bytes
+    ahead of each when ``rng`` is given); returns (flat on the card,
+    offsets, lengths) as crc_segments takes them."""
+    flat, offs = bytearray(), []
+    for b in bufs:
+        if rng is not None:
+            flat += bytes(int(rng.integers(1, 38)))
+        offs.append(len(flat))
+        flat += b
+    flat += bytes(-len(flat) % 16)
+    return (torch.frombuffer(flat, dtype=torch.uint8).cuda(),
+            torch.tensor(offs, dtype=torch.int64),
+            torch.tensor([len(b) for b in bufs], dtype=torch.int64))
+
+
+def oracle(bufs, sel) -> list[int]:
+    return [native.crc32c(b) if p == 0 else zlib.crc32(b) & 0xFFFFFFFF
+            for b, p in zip(bufs, sel.tolist())]
 
 
 # ---------------------------------------------------------------- phase 1 --
@@ -167,9 +226,10 @@ def phase_device() -> dict:
 
 # ---------------------------------------------------------------- phase 2 --
 
-def phase_kernel(rng) -> int:
+def phase_kernel(rng, regions) -> tuple[int, dict]:
     """Kernel == plain version == CPU oracle; returns the max abs error
-    between kernel and plain version (0 when they agree)."""
+    between kernel and plain version (0 when they agree) and the timing
+    of the main path's shape (its produce regions, crc32c)."""
     max_err = 0
     print("phase 2: crc_rows vs plain version, rows of 65536 B")
     print("  B    sel     kernel_ms  bound_ms  plain_ms  h2d_ms")
@@ -191,26 +251,88 @@ def phase_kernel(rng) -> int:
             err = int((got - ref).abs().max())
             max_err = max(max_err, err)
             check(err == 0, f"kernel != plain version at B={B} sel={mode}")
-            want = [native.crc32c(b) if p == "crc32c"
-                    else zlib.crc32(b) & 0xFFFFFFFF
-                    for b, p in zip(bufs, polys)]
-            check(got.cpu().tolist() == want,
+            check(got.cpu().tolist() == oracle(bufs, sel),
                   f"kernel != CPU oracle at B={B} sel={mode}")
             if mode != "mixed":
                 continue
-            ms = kernel_ms(lambda: crc.crc_rows(d, t, s))
+            # crc_rows' own launch, staged so that the timing holds the
+            # kernel alone
+            staged = crc.stage(d.reshape(-1),
+                               torch.arange(B, dtype=torch.int64) * crc.BLOCK,
+                               torch.full((B,), crc.BLOCK, dtype=torch.int64),
+                               s, t)
+            ms = kernel_ms(lambda: crc.launch(staged))
+            check(torch.equal(staged[0], ref),
+                  f"a staged launch fired again differs at B={B}")
             plain = kernel_ms(lambda: crc.crc_rows_reference(d, t, s), 5)
             h2d = host_ms(lambda: torch.from_numpy(data).cuda())
             bms, _ = bound(B, crc.BLOCK, 2)
             print(f"  {B:<4} {mode:<7} {ms:9.4f} {bms:9.4f} {plain:9.3f} "
                   f"{h2d:7.3f}")
+
+    def ragged(n):
+        return rng.integers(0, 200_001, n)
+
+    shapes = (
+        ("main path", [bytes(r) for r in regions], False, "crc32c"),
+        ("256 x 65536", [rng.integers(0, 256, crc.BLOCK, dtype=np.uint8)
+                         .tobytes() for _ in range(256)], False, "mixed"),
+        ("ragged 0-200000", [rng.integers(0, 256, int(n), dtype=np.uint8)
+                             .tobytes() for n in ragged(64)], True, "mixed"),
+        ("61440 x 1024", [bytes(r) for r in rng.integers(
+            0, 256, (61_440, 1024), dtype=np.uint8)], False, "mixed"))
+    one = torch.zeros(1, device="cuda")
+    print("phase 2: crc_segments vs plain version, packed segments; "
+          f"kernel_ms as above, b2b_ms per launch of 50 back to back; "
+          f"one elementwise kernel reads "
+          f"{kernel_ms(lambda: one.add_(1)):.4f} ms by kernel_ms")
+    print("  shape            segs   real_bytes  kernel_ms  b2b_ms  "
+          "bound_ms  padded_bound_ms  plain_ms")
+    main = {}
+    for name, bufs, gaps, timed in shapes:
+        flat, offs, lens = pack(bufs, rng if gaps else None)
+        for mode in ("crc32c", "crc32", "mixed"):
+            sel = (torch.full((len(bufs),), crc.POLYS.index(mode),
+                              dtype=torch.int32) if mode != "mixed" else
+                   torch.from_numpy(rng.integers(0, 2, len(bufs))
+                                    .astype(np.int32)))
+            got = crc.crc_segments(flat, offs, lens, sel)
+            ref = crc.crc_segments_reference(flat, offs, lens, sel)
+            torch.cuda.synchronize()
+            err = int((got - ref).abs().max())
+            max_err = max(max_err, err)
+            check(err == 0, f"kernel != plain version at {name} sel={mode}")
+            check(got.cpu().tolist() == oracle(bufs, sel),
+                  f"kernel != CPU oracle at {name} sel={mode}")
+            if mode != timed:
+                continue
+            staged = crc.stage(flat, offs, lens, sel)
+            ms = kernel_ms(lambda: crc.launch(staged))
+            b2b = b2b_ms(lambda: crc.launch(staged))
+            check(torch.equal(staged[0], ref),
+                  f"a staged launch fired again differs at {name}")
+            plain = kernel_ms(
+                lambda: crc.crc_segments_reference(flat, offs, lens, sel), 3)
+            polys = len(set(sel.tolist()))
+            bms, by = seg_bound(offs.numpy(), lens.numpy(), polys)
+            rows = sum(math.ceil(n / crc.BLOCK) for n in lens.tolist())
+            pbms, _ = bound(rows, crc.BLOCK, polys)
+            print(f"  {name:<16} {len(bufs):6d} {int(lens.sum()):12d} "
+                  f"{ms:10.4f} {b2b:7.4f} {bms:9.5f} {pbms:16.5f} "
+                  f"{plain:9.3f}")
+            if name == "main path":
+                main = {"ms": ms, "plain_ms": plain, "bound_ms": bms,
+                        "bound_by": by}
     print("phase 2: ok (kernel == plain == oracle, crc32c/crc32/mixed)")
-    return max_err
+    return max_err, main
 
 
 # ---------------------------------------------------------------- phase 3 --
 
-def phase_main_path(gpu, cpu_p) -> dict:
+def workload(cpu_p) -> dict:
+    """The main path's records, its MsgVer1 legacy fetch blobs (lz4
+    wrappers, and uncompressed), and its produce regions (the CPU
+    provider's wire, which the GPU provider must equal)."""
     vals = payloads(4096, VALUE_SIZE)
     parts = [[Record(value=vals[(p * RECORDS + i) % len(vals)])
               for i in range(RECORDS)] for p in range(PARTITIONS)]
@@ -218,13 +340,81 @@ def phase_main_path(gpu, cpu_p) -> dict:
         recs, magic=1, codec="lz4", now_ms=NOW_MS,
         compress_fn=lambda raw: cpu_p.compress_many("lz4", [raw])[0])
         for recs in parts]
+    plain = [write_msgset_v01(recs, magic=1, codec=None, now_ms=NOW_MS)
+             for recs in parts]
+    wire = write_batches(cpu_p, parts, "lz4", NOW_MS)
+    return {"parts": parts, "legacy": legacy, "legacy_plain": plain,
+            "wire_cpu": wire,
+            "regions": [w[V2_OF_Attributes:] for w in wire]}
+
+
+def profiler_vs_events(regions) -> tuple[float | None, float, float]:
+    """Device time of 20 launches of the kernel on the main path's
+    regions, read three ways: torch.profiler's sum for the kernel; the
+    sum of CUDA-event intervals around each launch (a spin kernel ahead);
+    one CUDA-event interval around the 20 launches back to back."""
+    from torch.profiler import ProfilerActivity, profile
+    flat, offs, lens = pack(regions)
+    staged = crc.stage(flat, offs, lens,
+                       torch.zeros(len(regions), dtype=torch.int32))
+    crc.launch(staged)
+    each_ms = 0.0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            torch.cuda._sleep(1_000_000)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            crc.launch(staged)
+            b.record()
+            torch.cuda.synchronize()
+            each_ms += a.elapsed_time(b)
+        b2b = b2b_ms(lambda: crc.launch(staged), 20) * 20
+    prof_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if "crc_segments" in e.key)
+    return (prof_us / 2e3 if prof_us > 0 else None), each_ms, b2b
+
+
+def route_split(regions) -> dict:
+    """Host-clock ms (median of 20, each step ending in a device sync) of
+    the steps of the GPU CRC route for one round's regions, taken one by
+    one as crc32c_torch._crc_many takes them, and of the whole call."""
+    real = sum(len(r) for r in regions)
+    lens = torch.tensor([len(r) for r in regions], dtype=torch.int64)
+    offs = torch.cumsum(lens, 0) - lens
+    sel = torch.zeros(len(regions), dtype=torch.int32)
+
+    def join():
+        return torch.frombuffer(
+            bytearray().join([*regions, bytes(-real % 16)]),
+            dtype=torch.uint8)
+
+    host = join()
+    flat = host.cuda()
+    staged = crc.stage(flat, offs, lens, sel)
+    return {
+        "join on the host": host_ms(join, 20),
+        "H2D of flat (pageable)": host_ms(lambda: host.cuda(), 20),
+        "checks, tile plan, metadata H2D": host_ms(
+            lambda: crc.stage(flat, offs, lens, sel), 20),
+        "kernel launch + D2H of the CRCs": host_ms(
+            lambda: crc.launch(staged).cpu(), 20),
+        "crc32c_many, whole": host_ms(lambda: crc.crc32c_many(regions), 20),
+    }
+
+
+def phase_main_path(gpu, cpu_p, work: dict) -> dict:
+    parts, legacy = work["parts"], work["legacy"]
     nmsgs = PARTITIONS * RECORDS
 
     # the counted run: the main path, produce then verify, plus the
     # legacy fetch leg
     crc.launches = 0
+    crc.h2d_bytes = 0
     wire = write_batches(gpu, parts, "lz4", NOW_MS)
     per_stage = {"produce": crc.launches}
+    h2d_produce = crc.h2d_bytes
     got = read_batches(gpu, wire)
     per_stage["verify"] = crc.launches - per_stage["produce"]
     got_legacy = read_batches(gpu, legacy)
@@ -235,8 +425,8 @@ def phase_main_path(gpu, cpu_p) -> dict:
           f"a main-path stage launched the crc_rows kernel 0 times: "
           f"{per_stage}")
 
-    wire_cpu = write_batches(cpu_p, parts, "lz4", NOW_MS)
-    check(wire == wire_cpu, "GPU provider wire bytes != CPU provider's")
+    check(wire == work["wire_cpu"], "GPU provider wire bytes != CPU "
+          "provider's")
     for recs, want in ((got, parts), (got_legacy, parts)):
         check(len(recs) == len(want), "partition count differs")
         for r, w in zip(recs, want):
@@ -251,13 +441,23 @@ def phase_main_path(gpu, cpu_p) -> dict:
     except CrcMismatch:
         pass
 
-    regions = [w[V2_OF_Attributes:] for w in wire]
+    regions = work["regions"]
+    real = sum(len(r) for r in regions)
+    S = len(regions)
+    lens = np.array([len(r) for r in regions], np.int64)
+    tiles = crc.plan_tiles(np.cumsum(lens) - lens, lens)
+    meta = 16 * len(tiles) + 8 * math.ceil(S / 2)
     rows = sum(math.ceil(len(r) / crc.BLOCK) for r in regions)
-    comp = sum(len(w) for w in wire)
     print(f"phase 3: {PARTITIONS} partitions x {RECORDS} x {VALUE_SIZE} B "
-          f"lz4: {rows} compressed blocks per round ({comp} wire bytes); "
-          f"launches per round: " + ", ".join(
-              f"{k} {v}" for k, v in per_stage.items()))
+          f"lz4: {S} regions per round ({real} real bytes, {rows} rows of "
+          f"64 KB under the padded contract); launches per round: "
+          + ", ".join(f"{k} {v}" for k, v in per_stage.items()))
+    print(f"  h2d bytes of one produce round: {h2d_produce} (regions "
+          f"{real} + alignment {-real % 16} + metadata {meta}; padded rows "
+          f"would copy {rows * crc.BLOCK})")
+    check(h2d_produce == real + (-real % 16) + meta,
+          f"produce round copied {h2d_produce} bytes to the card, not the "
+          f"regions' {real} plus {meta} of metadata")
 
     provs = (("gpu", gpu), ("cpu", cpu_p))
     for _, prov in provs:                                   # warm round
@@ -280,39 +480,61 @@ def phase_main_path(gpu, cpu_p) -> dict:
               f"({ROUNDS} rounds after one warm round)")
     crc_ms = {name: host_ms(lambda: prov.crc32c_many(regions))
               for name, prov in provs}
-    print(f"  crc32c_many of one round's {len(regions)} regions: gpu "
+    print(f"  crc32c_many of one round's {S} regions: gpu "
           f"{crc_ms['gpu']:.3f} ms, cpu {crc_ms['cpu']:.3f} ms (host clock)")
     busy = device_busy_share(lambda: write_batches(gpu, parts, "lz4", NOW_MS))
     print("  device busy share of one gpu produce round: "
           + ("not measured (profiler saw no device time)" if busy is None
              else f"{busy:.6f}"))
+    prof_ms, each_ms, b2b = profiler_vs_events(regions)
+    print(f"  20 kernel launches on the round's regions, device ms: "
+          f"profiler's kernel sum "
+          + ("not measured (no kernel time)" if prof_ms is None
+             else f"{prof_ms:.4f}")
+          + f"; CUDA events around each {each_ms:.4f}, around all 20 back "
+          f"to back {b2b:.4f}")
+    split = route_split(regions)
+    print("  GPU CRC route of one round, host clock ms: " + "; ".join(
+        f"{k} {v:.4f}" for k, v in split.items()))
+
+    # uncompressed MsgVer1 fetch: one legacy CRC region per message
+    plain = work["legacy_plain"]
+    nreg = sum(len(iter_legacy_crc_regions(b)) for b in plain)
+    before = crc.launches
+    t0 = time.perf_counter()
+    got_plain = read_batches(gpu, plain)
+    t_gpu = (time.perf_counter() - t0) * 1e3
+    leg_launches = crc.launches - before
+    t0 = time.perf_counter()
+    read_batches(cpu_p, plain)
+    t_cpu = (time.perf_counter() - t0) * 1e3
+    check([[x.value for x in r] for r in got_plain]
+          == [[x.value for x in w] for w in parts],
+          "uncompressed MsgVer1 records read back differ")
+    regs = [r for b in plain for _, _, r in iter_legacy_crc_regions(b)]
+    leg_ms = {name: host_ms(lambda: prov.crc32_many(regs), 3)
+              for name, prov in provs}
+    print(f"  uncompressed MsgVer1 fetch, {nreg} legacy regions "
+          f"({sum(len(r) for r in regs)} bytes): {leg_launches} launch(es); "
+          f"read_batches gpu {t_gpu:.1f} ms, cpu {t_cpu:.1f} ms; "
+          f"crc32_many gpu {leg_ms['gpu']:.3f} ms, cpu {leg_ms['cpu']:.3f} ms "
+          f"(host clock)")
+    check(leg_launches == math.ceil(sum(len(r) for r in regs)
+                                    / crc.LAUNCH_BYTES),
+          f"uncompressed legacy fetch took {leg_launches} launches")
     print("phase 3: ok (round trip, wire == CPU provider, CrcMismatch, "
-          "legacy leg)")
-    return {"regions": regions, "launches": launches}
+          "legacy legs, no padding copied)")
+    return {"launches": launches}
 
 
-def kernel_line(main: dict, max_err: int) -> dict:
-    """The crc_rows entry at the main path's shape (its produce rows)."""
-    regions = main["regions"]
-    blocks = [bytes(r[i:i + crc.BLOCK]) for r in regions
-              for i in range(0, len(r), crc.BLOCK)]
-    data, terms, sel = rows_for(blocks, ["crc32c"] * len(blocks))
-    d = torch.from_numpy(data).cuda()
-    t = torch.from_numpy(terms).cuda()
-    s = torch.from_numpy(sel).cuda()
-    got = crc.crc_rows(d, t, s)
-    ref = crc.crc_rows_reference(d, t, s)
-    err = max(max_err, int((got - ref).abs().max()))
-    check(err == 0, "kernel != plain version at the main path's shape")
-    ms = kernel_ms(lambda: crc.crc_rows(d, t, s))
-    plain = kernel_ms(lambda: crc.crc_rows_reference(d, t, s), 5)
-    bms, by = bound(len(blocks), crc.BLOCK, 1)
+def kernel_line(main: dict, timing: dict, max_err: int) -> dict:
+    """The crc_rows entry at the main path's shape (its produce regions
+    as packed segments)."""
     return {"name": "crc_rows", "route": "cuda",
             "source": "librdkafka_tpu_torch/csrc/crc_rows.cu",
             "replaces": "librdkafka_tpu/ops/crc32c_jax.py:471",
-            "launches": main["launches"], "max_abs_err": err,
-            "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-            "library_ms": None}
+            "launches": main["launches"], "max_abs_err": max_err,
+            **timing, "library_ms": None}
 
 
 def main() -> None:
@@ -321,11 +543,13 @@ def main() -> None:
              "CUDA card")
     rng = np.random.default_rng(SEED)
     dev = phase_device()
-    max_err = phase_kernel(rng)
+    cpu_p = CpuCodecProvider()
+    work = workload(cpu_p)
+    max_err, timing = phase_kernel(rng, work["regions"])
     gpu = GpuCodecProvider(min_batches=1)
-    main_path = phase_main_path(gpu, CpuCodecProvider())
+    main_path = phase_main_path(gpu, cpu_p, work)
     gpu.close()
-    line = kernel_line(main_path, max_err)
+    line = kernel_line(main_path, timing, max_err)
     print(f"{dev['smi']}")
     print(json.dumps({"kernels": [line]}))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,7 @@ device: the MessageSet v2 codec and its batched CRC offload.
 - ``utils``    — CRC32C/CRC32 tables and combines, varint, segmented buffers
 - ``protocol`` — protocol constants, MessageSet v2 and v0/v1 writer/reader
 - ``ops``      — native C++ CPU codec provider (ctypes), the GPU provider
-                 and its hand-written CUDA row kernel (``csrc/crc_rows.cu``)
+                 and its hand-written CUDA CRC kernel (``csrc/crc_rows.cu``)
 - ``client``   — the broker's writer phase and fetch verify, synchronous
                  route (``write_batches`` / ``read_batches``)
 

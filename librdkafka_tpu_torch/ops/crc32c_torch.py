@@ -3,25 +3,30 @@ and src/rdcrc32.c.
 
 The port of librdkafka_tpu/ops/crc32c_jax.py's main-path route (the
 ``_crc_many_mxu`` driver and its row kernels).  The checksum of MANY
-buffers is computed in one device launch over fixed 64 KB rows:
+buffers is computed in one device launch over packed ragged segments:
 
-  - CRC register folding is GF(2)-linear in (register, data):
-        f(~0, data) = f(~0, 0^n) XOR f(0, data)
-    and leading zero bytes are a no-op under a zero initial register:
-        f(0, 0^m || data) = f(0, data).
-    So each 64 KB block is LEFT-padded with zeros into a (B, 65536) row,
-    the device folds every row from a zero register, and the
-    length-dependent term f(~0, 0^n) is computed on the host
-    (:func:`_term_host`) and applied by the kernel:
-        out[b] = ~(raw_b ^ terms[b]).
-  - Buffers longer than one block are folded block by block on the host
-    with ``crc32c_combine`` / ``crc32_combine`` (µs each).
+  - The buffers are joined, with no padding, into one uint8 array
+    ``flat``; segment s is ``flat[offsets[s]:offsets[s] + lengths[s]]``
+    and ``sel[s]`` picks its polynomial (0 crc32c, 1 crc32).  One copy of
+    ``flat`` and one of the metadata cross to the card.
+  - The kernel (``csrc/crc_rows.cu``) cuts each segment into tiles
+    counted back from its end and returns the standard CRC of every
+    segment, whatever its length: no host term, no 64 KB split, no
+    ``crc32c_combine`` on the host.
+  - With ``terms`` it keeps the TPU's row contract instead: it folds from
+    a ZERO register and returns ``~(raw ^ terms)``.  CRC folding is
+    GF(2)-linear, f(~0, data) = f(~0, 0^n) XOR f(0, data), and leading
+    zeros are a no-op under a zero register, so a left-padded row with
+    the host term f(~0, 0^n) (:func:`_term_host`) gives the CRC.
+    :func:`crc_rows` is that contract on (B, N) rows, through the same
+    kernel.
 
-:func:`crc_rows` is the row kernel's wrapper.  On a CUDA tensor it
-launches the hand-written kernel ``csrc/crc_rows.cu`` (built with nvcc
-at first use, loaded with ctypes) or raises; on a CPU tensor it runs
-:func:`crc_rows_reference`, the plain PyTorch version of the same
-function.  ``launches`` counts kernel launches.
+:func:`crc_segments` is the kernel's wrapper.  On a CUDA tensor it
+launches the hand-written kernel (built with nvcc at first use, loaded
+with ctypes) or raises; on a CPU tensor it runs
+:func:`crc_segments_reference`, the plain PyTorch version of the same
+function.  ``launches`` counts kernel launches and ``h2d_bytes`` the
+bytes the route copies to the card.
 """
 from __future__ import annotations
 
@@ -36,15 +41,22 @@ import numpy as np
 import torch
 
 from ..utils.crc import (TABLE8_CRC32, TABLE_CRC32C, ZERO_OP_CRC32,
-                         ZERO_OP_CRC32C, crc32_combine, crc32c_combine)
-from .packing import pad_left
+                         ZERO_OP_CRC32C)
 
-BLOCK = 65536        # fixed device row; ≥ any msgset batch chunk
-MAX_ROWS = 256       # rows per launch (bounds the staging copy)
+BLOCK = 65536        # the TPU row width of the row contract (crc_rows)
 POLYS = ("crc32c", "crc32")   # sel value = index: 0 crc32c, 1 crc32
+# The kernel's geometry (csrc/crc_rows.cu: kPiece, kTile, kShifts): a
+# thread folds PIECE bytes, a block one TILE, combined by SHIFTS shift
+# tables over PIECE << k bytes.
+PIECE = 64
+TILE = 256 * PIECE
+SHIFTS = 9
+LAUNCH_BYTES = 64 << 20      # bytes of ``flat`` per launch in _crc_many
 
-#: kernel launches made by :func:`crc_rows` (not by the plain version)
+#: kernel launches made by :func:`crc_segments` (not by the plain version)
 launches = 0
+#: bytes the CRC route copied host → device (``flat`` and metadata)
+h2d_bytes = 0
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CU_SRC = os.path.join(_PKG, "csrc", "crc_rows.cu")
@@ -124,6 +136,67 @@ def _shift_tables(nbytes: int, poly: str) -> np.ndarray:
     return out
 
 
+def _gf2_inverse(cols) -> list[int]:
+    """Columns of the inverse of a GF(2) 32x32 matrix (column form), by
+    Gauss-Jordan elimination on rows [A | I]."""
+    rows = [sum(((int(cols[c]) >> r) & 1) << c for c in range(32))
+            | (1 << (32 + r)) for r in range(32)]
+    for c in range(32):
+        p = next(r for r in range(c, 32) if (rows[r] >> c) & 1)
+        rows[c], rows[p] = rows[p], rows[c]
+        for r in range(32):
+            if r != c and (rows[r] >> c) & 1:
+                rows[r] ^= rows[c]
+    inv_rows = [r >> 32 for r in rows]
+    return [sum(((inv_rows[r] >> c) & 1) << r for r in range(32))
+            for c in range(32)]
+
+
+def _nibble_tables(nbytes: int, poly: str) -> np.ndarray:
+    """(8, 16) tables: N[k][v] = M^nbytes applied to (v << 4k)."""
+    cols = _mat_pow_cols(nbytes, poly)
+    return np.array([[_apply_host(cols, v << (4 * k)) for v in range(16)]
+                     for k in range(8)], dtype=np.uint32)
+
+
+@lru_cache(maxsize=2)
+def _kernel_consts(poly: str) -> np.ndarray:
+    """The kernel's constants for one polynomial, uint32: its slice-by-8
+    step as 16 nibble tables (16, 16), table j holding the byte table of
+    byte j // 2 of the 8 folded at the nibble's place; zero-shift nibble
+    tables (8, 16) over PIECE << k bytes for k < SHIFTS; then M^-m for
+    m = 0..15 as 32 columns, which undoes the m trailing zeros up to a
+    segment's 16-byte-aligned end."""
+    t8, zop = _poly_tables(poly)
+    t8 = np.asarray(t8, np.uint32)
+    fold = t8[7 - np.arange(16)[:, None] // 2,
+              np.arange(16)[None, :] << (4 * (np.arange(16)[:, None] % 2))]
+    inv1 = _gf2_inverse(zop[0])
+    inv = [[1 << i for i in range(32)]]
+    for _ in range(15):
+        inv.append([_apply_host(inv1, c) for c in inv[-1]])
+    return np.concatenate(
+        [fold.ravel()]
+        + [_nibble_tables(PIECE << k, poly).ravel() for k in range(SHIFTS)]
+        + [np.asarray(inv, np.uint32).ravel()])
+
+
+def plan_tiles(offsets: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+    """The kernel's tile list: each segment is cut into TILE-byte tiles
+    counted back from its 16-byte-aligned end; tiles of one segment are
+    adjacent.  Returns (T, 4) int32 rows of {window start, segment start,
+    segment end, segment}."""
+    start = offsets.astype(np.int64)
+    end = start + lengths.astype(np.int64)
+    aligned_end = (end + 15) & ~15
+    n = np.maximum(1, -(-(aligned_end - (start & ~15)) // TILE))
+    seg = np.repeat(np.arange(len(n)), n)
+    first = np.cumsum(n) - n
+    k = np.arange(len(seg)) - first[seg]
+    vs = aligned_end[seg] - (n[seg] - k) * TILE
+    return np.stack([vs, start[seg], end[seg], seg], axis=1).astype(np.int32)
+
+
 # ------------------------------------------------------- plain version --
 
 def _pick_kl(N: int) -> tuple[int, int]:
@@ -186,6 +259,59 @@ def crc_rows_reference(data: torch.Tensor, terms: torch.Tensor,
     return (raw ^ terms.to(torch.int64)) ^ 0xFFFFFFFF
 
 
+def _term_torch(lengths: torch.Tensor, poly: torch.Tensor) -> torch.Tensor:
+    """f(~0, 0^n) per segment in torch: binary exponentiation over the
+    ZERO_OP matrices of each segment's polynomial (int64 holding uint32)."""
+    dev = lengths.device
+    zop = torch.from_numpy(np.stack([_poly_tables(p)[1] for p in POLYS])
+                           .astype(np.int64)).to(dev)
+    v = torch.full(lengths.shape, 0xFFFFFFFF, dtype=torch.int64, device=dev)
+    top = int(lengths.max()) if lengths.numel() else 0
+    for k in range(top.bit_length()):
+        cols = zop[poly, k]                               # (S, 32)
+        acc = torch.zeros_like(v)
+        for i in range(32):
+            acc ^= ((v >> i) & 1) * cols[:, i]
+        v = torch.where(((lengths >> k) & 1) == 1, acc, v)
+    return v
+
+
+def crc_segments_reference(flat: torch.Tensor, offsets: torch.Tensor,
+                           lengths: torch.Tensor, sel: torch.Tensor,
+                           terms: torch.Tensor | None = None) -> torch.Tensor:
+    """The segment kernel's function in plain PyTorch, on flat's device.
+
+    Each segment is rebuilt as a left-padded row of width
+    max(4096, next_pow2(length)) and folded by :func:`crc_rows_reference`;
+    without ``terms`` the term f(~0, 0^n) comes from :func:`_term_torch`.
+    Segments are taken in groups of about 4 MB of rows."""
+    dev = flat.device
+    offsets, lengths, sel = (x.to(dev) for x in (offsets, lengths, sel))
+    poly = (sel != 0).to(torch.int64)
+    if terms is None:
+        terms = _term_torch(lengths, poly)
+    terms = terms.to(dev)
+    out = torch.zeros(offsets.shape, dtype=torch.int64, device=dev)
+    ext = torch.cat([flat, flat.new_zeros(1)])     # index M reads a zero
+    widths = [max(4096, 1 << max(0, int(n) - 1).bit_length())
+              for n in lengths.tolist()]
+    by_width: dict[int, list[int]] = {}
+    for s, w in enumerate(widths):
+        by_width.setdefault(w, []).append(s)
+    for N, segs in by_width.items():
+        step = max(1, (4 << 20) // N)
+        for i in range(0, len(segs), step):
+            idx = torch.tensor(segs[i:i + step], dtype=torch.int64,
+                               device=dev)
+            col = torch.arange(N, dtype=torch.int64, device=dev)
+            lead = (N - lengths[idx]).view(-1, 1)
+            pos = offsets[idx].view(-1, 1) - lead + col
+            pos = torch.where(col >= lead, pos, flat.numel())
+            out[idx] = crc_rows_reference(ext[pos], terms[idx],
+                                          poly[idx].to(torch.int32))
+    return out
+
+
 # -------------------------------------------------------- CUDA kernel --
 
 def _build() -> str:
@@ -213,10 +339,9 @@ def _kernel_lib() -> ctypes.CDLL:
         if _lib is None:
             L = ctypes.CDLL(_build())
             vp = ctypes.c_void_p
-            L.crc_rows_launch.argtypes = [vp, vp, vp, vp, vp, vp,
-                                          ctypes.c_int64, ctypes.c_int64,
-                                          ctypes.c_int, vp]
-            L.crc_rows_launch.restype = ctypes.c_int
+            L.crc_segments_launch.argtypes = [vp] * 7 + [
+                ctypes.c_int64, ctypes.c_int, ctypes.c_int, vp]
+            L.crc_segments_launch.restype = ctypes.c_int
             _lib = L
     return _lib
 
@@ -224,16 +349,13 @@ def _kernel_lib() -> ctypes.CDLL:
 _DEV_CONSTS: dict = {}
 
 
-def _device_consts(dev: torch.device):
-    """(tables (2, 8, 256) uint32, zop (2, 64, 32) uint32) as int32
-    bit patterns on ``dev``, uploaded once per device."""
+def _device_consts(dev: torch.device) -> torch.Tensor:
+    """Both polynomials' :func:`_kernel_consts` as one int32 tensor of
+    uint32 bit patterns on ``dev``, uploaded once per device."""
     key = str(dev)
     if key not in _DEV_CONSTS:
-        t = np.stack([_poly_tables(p)[0] for p in POLYS]).astype(np.uint32)
-        z = np.stack([_poly_tables(p)[1] for p in POLYS]).astype(np.uint32)
-        _DEV_CONSTS[key] = tuple(
-            torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)
-            for a in (t, z))
+        c = np.concatenate([_kernel_consts(p) for p in POLYS])
+        _DEV_CONSTS[key] = torch.from_numpy(c.view(np.int32)).to(dev)
     return _DEV_CONSTS[key]
 
 
@@ -255,26 +377,115 @@ def _check_rows(data, terms, sel) -> tuple[int, int]:
 def crc_rows(data: torch.Tensor, terms: torch.Tensor,
              sel: torch.Tensor) -> torch.Tensor:
     """``~(fold(row) ^ terms) & 0xFFFFFFFF`` per left-padded row, (B,)
-    int64.  CUDA tensors launch ``csrc/crc_rows.cu``; CPU tensors run
+    int64: the TPU row contract.  CUDA tensors launch the segment kernel
+    with offsets b·N and lengths N; CPU tensors run
     :func:`crc_rows_reference`."""
-    global launches
     B, N = _check_rows(data, terms, sel)
     if data.device.type == "cpu":
         return crc_rows_reference(data, terms, sel)
     if data.device.type != "cuda":
         raise ValueError(f"crc_rows: unsupported device {data.device}")
-    data, terms, sel = (t.contiguous() for t in (data, terms, sel))
-    out = torch.empty((B,), dtype=torch.int64, device=data.device)
-    if B == 0:
+    return crc_segments(data.reshape(-1),
+                        torch.arange(B, dtype=torch.int64) * N,
+                        torch.full((B,), N, dtype=torch.int64), sel, terms)
+
+
+def _check_segments(flat, offsets, lengths, sel, terms):
+    """Validate the segment inputs; returns host (offsets, lengths)."""
+    if flat.dtype != torch.uint8 or flat.dim() != 1:
+        raise ValueError("flat must be a (M,) uint8 tensor")
+    S = offsets.shape[0] if offsets.dim() == 1 else -1
+    for name, t, dt in (("offsets", offsets, torch.int64),
+                        ("lengths", lengths, torch.int64),
+                        ("sel", sel, torch.int32),
+                        ("terms", terms, torch.int64)):
+        if t is None:
+            continue
+        if t.shape != (S,) or t.dtype != dt:
+            raise ValueError(f"{name} must be a (S,) {dt} tensor")
+        if t.device.type != "cpu" and t.device != flat.device:
+            raise ValueError(f"{name} must lie on the CPU or on flat's "
+                             f"device")
+    off = offsets.cpu().numpy()
+    ln = lengths.cpu().numpy()
+    if S and ((off < 0).any() or (ln < 0).any()
+              or (off + ln > flat.numel()).any()):
+        raise ValueError("a segment lies outside flat")
+    return off, ln
+
+
+def crc_segments(flat: torch.Tensor, offsets: torch.Tensor,
+                 lengths: torch.Tensor, sel: torch.Tensor,
+                 terms: torch.Tensor | None = None) -> torch.Tensor:
+    """CRC of each segment ``flat[offsets[s]:offsets[s] + lengths[s]]``
+    with the polynomial ``sel[s]`` (0 crc32c, 1 crc32), (S,) int64.
+    Without ``terms`` the standard CRC; with ``terms`` the row contract
+    ``~(fold from zero ^ terms)``.
+
+    flat (M,) uint8; offsets, lengths (S,) int64 and sel (S,) int32 and
+    terms (S,) int64 on the CPU or on flat's device (they are read on
+    the host, which plans the tiles).  A CUDA ``flat`` launches
+    ``csrc/crc_rows.cu``; a CPU ``flat`` runs
+    :func:`crc_segments_reference`."""
+    if flat.device.type == "cpu":
+        _check_segments(flat, offsets, lengths, sel, terms)
+        return crc_segments_reference(flat, offsets, lengths, sel, terms)
+    return launch(stage(flat, offsets, lengths, sel, terms))
+
+
+def stage(flat: torch.Tensor, offsets: torch.Tensor, lengths: torch.Tensor,
+          sel: torch.Tensor, terms: torch.Tensor | None = None) -> tuple:
+    """Check the inputs of :func:`crc_segments` on a CUDA ``flat``, plan
+    the tiles and put the launch's inputs on the card: the metadata
+    (tiles, sel, terms) crosses in ONE int64 tensor.  Returns what
+    :func:`launch` takes; a staged launch may be fired again, which is
+    how it is timed alone."""
+    global h2d_bytes
+    off, ln = _check_segments(flat, offsets, lengths, sel, terms)
+    if flat.device.type != "cuda":
+        raise ValueError(f"crc_segments: unsupported device {flat.device}")
+    if flat.numel() > (1 << 31) - 16:
+        raise ValueError("flat must hold under 2 GiB: the kernel's tile "
+                         "positions are int32")
+    if flat.numel() % 16 or flat.data_ptr() % 16:   # the kernel's copies
+        flat = torch.cat([flat, flat.new_zeros(-flat.numel() % 16)])
+    dev = flat.device
+    tiles = plan_tiles(off, ln)
+    sel_h = sel.cpu().numpy()
+    # tiles first (16 B each, so aligned), then sel padded to 8 B, terms
+    parts = [tiles.reshape(-1).view(np.int64),
+             np.concatenate([sel_h, np.zeros(len(sel_h) % 2, np.int32)])
+             .view(np.int64)]
+    if terms is not None:
+        parts.append(terms.cpu().numpy())
+    meta = torch.from_numpy(np.concatenate(parts)).to(dev)
+    h2d_bytes += meta.numel() * 8
+    sel_at = meta.data_ptr() + tiles.nbytes
+    terms_at = None if terms is None else sel_at + parts[1].nbytes
+    # one polynomial's constants in shared memory when sel is uniform
+    crc32 = sel_h != 0
+    uniform = len(crc32) == 0 or crc32.all() or not crc32.any()
+    poly_first = int(crc32[0]) if uniform and len(crc32) else 0
+
+    scratch = torch.zeros((len(tiles),), dtype=torch.int64, device=dev)
+    out = torch.empty((len(off),), dtype=torch.int64, device=dev)
+    args = (flat.data_ptr(), meta.data_ptr(), sel_at, terms_at,
+            _device_consts(dev).data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), len(tiles), poly_first, 1 if uniform else 2)
+    return out, args, (flat, meta, scratch)
+
+
+def launch(staged: tuple) -> torch.Tensor:
+    """Launch the kernel on torch's current stream; returns ``out``."""
+    global launches
+    out, args, _alive = staged
+    if len(out) == 0:
         return out
-    tables, zop = _device_consts(data.device)
-    stream = torch.cuda.current_stream(data.device).cuda_stream
-    err = _kernel_lib().crc_rows_launch(
-        data.data_ptr(), terms.data_ptr(), sel.data_ptr(),
-        tables.data_ptr(), zop.data_ptr(), out.data_ptr(),
-        B, N, (N // 256).bit_length() - 1, stream)
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    err = _kernel_lib().crc_segments_launch(*args, stream)
     if err != 0:
-        raise RuntimeError(f"crc_rows kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"crc_segments kernel launch failed: "
+                           f"cudaError {err}")
     launches += 1
     return out
 
@@ -294,57 +505,46 @@ def resolve_device(device=None) -> torch.device:
 
 
 def crc32c_many(bufs, device=None) -> np.ndarray:
-    """CRC32C of each buffer (uint32 array) via one row-kernel launch
-    per 256 64 KB blocks, folded per buffer with crc32c_combine."""
+    """CRC32C of each buffer (uint32 array): one segment-kernel launch
+    per LAUNCH_BYTES of buffers, each buffer taken whole."""
     return _crc_many(bufs, "crc32c", resolve_device(device))
 
 
 def crc32_many(bufs, device=None) -> np.ndarray:
     """Legacy zlib-polynomial CRC32 (MsgVer0/1 per-message checksum,
-    reference src/rdcrc32.c) on the same row kernel — the GF(2)-linear
+    reference src/rdcrc32.c) on the same kernel — the GF(2)-linear
     decomposition is polynomial-agnostic."""
     return _crc_many(bufs, "crc32", resolve_device(device))
 
 
 def _crc_many(bufs, poly: str, device: torch.device) -> np.ndarray:
-    """Port of ``_crc_many_mxu`` (crc32c_jax.py:508-571), launching
-    exactly the rows it has (no pow2 / 128-row bucket padding)."""
+    """Port of ``_crc_many_mxu`` (crc32c_jax.py:508-571) on packed
+    segments: the buffers of a launch are joined into one ``flat`` (zeros
+    only to round its end up to 16 bytes), copied to the card once, and
+    every CRC comes back in one readback."""
+    global h2d_bytes
     res = np.zeros((len(bufs),), dtype=np.uint32)
-    if not bufs:
-        return res
-    combine = crc32c_combine if poly == "crc32c" else crc32_combine
-    blocks: list[bytes] = []
-    spans: list[tuple[int, int]] = []
-    for b in bufs:
-        b = bytes(b)
-        first = len(blocks)
-        for pos in range(0, len(b), BLOCK):
-            blocks.append(b[pos:pos + BLOCK])
-        spans.append((first, len(blocks) - first))
-    if not blocks:
-        return res                         # every buffer empty: crc 0
-
-    crcs = np.zeros((len(blocks),), dtype=np.uint32)
+    lens = np.fromiter((len(b) for b in bufs), dtype=np.int64,
+                       count=len(bufs))
+    ends = np.cumsum(lens)
     sel_v = POLYS.index(poly)
-    for start in range(0, len(blocks), MAX_ROWS):
-        chunk = blocks[start:start + MAX_ROWS]
-        data, lens = pad_left(chunk, BLOCK)
-        terms = np.array([_term_host(int(n), poly) for n in lens],
-                         dtype=np.int64)
-        out = crc_rows(torch.from_numpy(data).to(device),
-                       torch.from_numpy(terms).to(device),
-                       torch.full((len(chunk),), sel_v, dtype=torch.int32,
-                                  device=device))
-        crcs[start:start + len(chunk)] = out.cpu().numpy()
-
-    for i, ((first, nb), b) in enumerate(zip(spans, bufs)):
-        if nb == 0:
-            continue                       # empty buffer: crc 0
-        acc = int(crcs[first])
-        off = BLOCK
-        for k in range(1, nb):
-            ln = min(BLOCK, len(b) - off)
-            acc = combine(acc, int(crcs[first + k]), ln)
-            off += BLOCK
-        res[i] = acc
+    start = 0
+    while start < len(bufs):
+        base = int(ends[start] - lens[start])
+        stop = max(start + 1, int(np.searchsorted(
+            ends, base + LAUNCH_BYTES, side="right")))
+        total = int(ends[stop - 1]) - base
+        if total:                            # else every buffer empty: 0
+            host = bytearray().join([*bufs[start:stop], bytes(-total % 16)])
+            flat = torch.frombuffer(host, dtype=torch.uint8)
+            if device.type != "cpu":
+                flat = flat.to(device)
+                h2d_bytes += flat.numel()
+            out = crc_segments(
+                flat, torch.from_numpy(ends[start:stop] - lens[start:stop]
+                                       - base),
+                torch.from_numpy(lens[start:stop]),
+                torch.full((stop - start,), sel_v, dtype=torch.int32))
+            res[start:stop] = out.cpu().numpy()
+        start = stop
     return res

@@ -5,9 +5,10 @@ The same MsgsetCodecProvider interface as the CPU provider; only the
 batched checksums leave the host:
 
   * ``crc32c_many`` / ``crc32_many``: at and above ``min_batches``
-    buffers, one launch of the hand-written row kernel per 256 64 KB
-    blocks (ops/crc32c_torch.py, csrc/crc_rows.cu), as tpu.py:453-467 and
-    :480-500 route them; below it, the CPU provider.
+    buffers, one launch of the hand-written segment kernel per 64 MB of
+    buffers, packed with no padding (ops/crc32c_torch.py,
+    csrc/crc_rows.cu), as tpu.py:453-467 and :480-500 route them; below
+    it, the CPU provider.
   * lz4 compression stays on the native CPU path, exactly as tpu.py:284-294
     routes it without ``tpu.lz4.force``; decompression is always the CPU
     provider's (tpu.py:296-304).
@@ -28,7 +29,7 @@ class GpuCodecProvider:
     """MsgsetCodecProvider with the CRC batches on the GPU.
 
     ``device=None`` is the card (``cuda``); a host without CUDA raises
-    rather than serving from the CPU.  ``device="cpu"`` runs the row
+    rather than serving from the CPU.  ``device="cpu"`` runs the
     kernel's plain PyTorch version on the host (the tests' route)."""
 
     name = "gpu"
@@ -54,7 +55,7 @@ class GpuCodecProvider:
         return self._cpu.crc32c_many(bufs)
 
     def crc32_many(self, bufs: list[bytes]) -> list[int]:
-        """Legacy MsgVer0/1 zlib-poly CRC on the same row kernel."""
+        """Legacy MsgVer0/1 zlib-poly CRC on the same kernel."""
         if len(bufs) >= self.min_batches:
             return crc32c_torch.crc32_many(bufs, self.device).tolist()
         return self._cpu.crc32_many(bufs)

@@ -1,9 +1,11 @@
 """Host-side batch packing helpers shared by the device codec kernels.
 
 The port's copy of librdkafka_tpu/ops/packing.py.  An lz4 row kernel
-wants RIGHT-padded rows (positions are absolute from the block start);
-the CRC row kernel wants LEFT-padded rows (leading zeros are a no-op
-under a zero initial register — see ops/crc32c_torch.py).
+wants RIGHT-padded rows (positions are absolute from the block start).
+LEFT-padded rows are the TPU CRC kernels' layout (leading zeros are a
+no-op under a zero initial register), which ``crc32c_torch.crc_rows``
+keeps; the port's CRC route itself packs buffers with no padding
+(``crc32c_torch._crc_many``).
 
 Also home of the LZ4F frame shape of the fused device compress route:
 :class:`FrameBlob` is an assembled frame that carries the crc32c of each
@@ -62,7 +64,7 @@ def _pack(buffers: list[bytes], N: int, left: bool) -> tuple[np.ndarray, np.ndar
 
 
 def pad_left(buffers: list[bytes], N: int):
-    """Right-aligned rows (leading zeros) — the crc32c kernel layout."""
+    """Right-aligned rows (leading zeros) — the TPU crc32c row layout."""
     return _pack(buffers, N, True)
 
 

@@ -138,12 +138,12 @@ def crc32(data, crc: int = 0) -> int:
     return zlib.crc32(bytes(data), crc) & 0xFFFFFFFF
 
 
-#: The byte-advance operator matrices, for the GPU row kernel
+#: The byte-advance operator matrices, for the GPU CRC kernel
 #: (csrc/crc_rows.cu), which implements the same combine across threads.
 ZERO_OP_CRC32C = np.array(_ZERO_OP_C, dtype=np.uint32)  # [64][32]
 TABLE_CRC32C = _TABLE8  # [8][256] uint32
 #: zlib-polynomial twins, for the legacy MsgVer0/1 per-message CRC
-#: (reference: src/rdcrc32.c) on the same row kernel.
+#: (reference: src/rdcrc32.c) on the same kernel.
 ZERO_OP_CRC32 = np.array(_ZERO_OP_Z, dtype=np.uint32)   # [64][32]
 TABLE8_CRC32 = _make_table8(0xEDB88320)                 # [8][256] uint32
 TABLE_CRC32 = TABLE8_CRC32[0]                           # [256] uint32

@@ -131,9 +131,9 @@ def test_frame_blob_folds_the_batch_crc(gpu_cpu):
 def test_min_batches_routes_small_calls_to_cpu(monkeypatch):
     prov = GpuCodecProvider(device="cpu", min_batches=4)
     calls = []
-    monkeypatch.setattr(crc32c_torch, "crc_rows",
+    monkeypatch.setattr(crc32c_torch, "crc_segments",
                         lambda *a: calls.append(a) or
-                        crc32c_torch.crc_rows_reference(*a))
+                        crc32c_torch.crc_segments_reference(*a))
     assert prov.crc32c_many([b"a", b"b"]) == [crc32c(b"a"), crc32c(b"b")]
     assert calls == []
     prov.crc32c_many([b"a"] * 4)

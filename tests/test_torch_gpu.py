@@ -1,6 +1,7 @@
-"""Tests of the port that need a CUDA card: the hand-written row kernel
-(csrc/crc_rows.cu) against its plain version and the CPU oracles, and
-the GPU provider on its default device.  Marked ``gpu``; each skips on a
+"""Tests of the port that need a CUDA card: the hand-written segment kernel
+(csrc/crc_rows.cu), through ``crc_rows`` and ``crc_segments``, against its
+plain versions and the CPU oracles, and the GPU provider on its default
+device.  Marked ``gpu``; each skips on a
 host without CUDA.  On a card (tests/conftest.py imports jax, which the
 GPU host lacks):
 
@@ -60,3 +61,48 @@ def test_provider_round_trip_on_card(card):
     assert crc.launches == before + 2
     assert [[r.value for r in p] for p in recs] == [
         [r.value for r in p] for p in parts]
+
+
+@pytest.mark.parametrize("mode", ["crc32c", "crc32", "mixed", "terms"])
+def test_segment_kernel_equals_plain_and_oracle(card, mode):
+    rng = np.random.default_rng(len(mode))
+    lens = [0, 1, 3, 7, 16, 8191, 8192, 8193, 65537, 200_000,
+            *rng.integers(0, 30_000, 20).tolist()]
+    bufs = [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in lens]
+    flat, offs = bytearray(), []
+    for b in bufs:
+        flat += bytes(int(rng.integers(0, 40)))
+        offs.append(len(flat))
+        flat += b
+    sel = (np.full(len(bufs), crc.POLYS.index(mode), np.int32)
+           if mode in crc.POLYS else
+           rng.integers(0, 2, len(bufs)).astype(np.int32))
+    terms = None
+    if mode == "terms":
+        terms = torch.tensor([crc._term_host(n, crc.POLYS[s])
+                              for n, s in zip(lens, sel)], device=card)
+    args = (torch.frombuffer(flat, dtype=torch.uint8).to(card),
+            torch.tensor(offs), torch.tensor(lens), torch.from_numpy(sel),
+            terms)
+    before = crc.launches
+    got = crc.crc_segments(*args)
+    torch.cuda.synchronize()
+    assert crc.launches == before + 1
+    assert torch.equal(got, crc.crc_segments_reference(*args))
+    want = [native.crc32c(b) if p == 0 else zlib.crc32(b)
+            for b, p in zip(bufs, sel)]
+    assert got.cpu().tolist() == want
+
+
+def test_produce_round_copies_no_padding(card):
+    prov = GpuCodecProvider(min_batches=1)
+    parts = [[Record(value=b"%d" % i * 300) for i in range(40)]
+             for _ in range(8)]
+    before = crc.h2d_bytes
+    wire = write_batches(prov, parts, None, 1_700_000_000_000)
+    lens = np.array([len(w) - 21 for w in wire])     # the CRC regions
+    tiles = crc.plan_tiles(np.cumsum(lens) - lens, lens)
+    S, real = len(lens), int(lens.sum())
+    meta = 16 * len(tiles) + 8 * -(-S // 2)       # descriptors and sel
+    # the regions' own bytes, rounded up to 16, and the metadata: no rows
+    assert crc.h2d_bytes - before == real + (-real % 16) + meta
