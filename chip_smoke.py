@@ -20,7 +20,22 @@ wire bytes must equal the CPU provider's, a flipped byte must raise
 CrcMismatch, a legacy leg runs 64 MsgVer1 lz4 wrappers through crc32_many,
 and the bytes copied to the card must be the regions' own plus the
 metadata.  A last leg verifies an uncompressed MsgVer1 fetch of the same
-64 x 960 x 1 KB (61,440 legacy CRC regions).  Any mismatch exits non-zero.
+64 x 960 x 1 KB (61,440 legacy CRC regions).  Phases 2-3 run the
+synchronous route (``pipeline_depth=0``).  Phase 4 runs the async offload
+engine (ops/engine.py) on the card: (a) engine CRCs == the oracle with
+pinned ring slots refilled while earlier launches are in flight, a crc32
+job and a fused crc32c + crc32 launch, and one launch's staged inputs
+through the plain version; (b) ROUNDS pipelined full-width produce rounds
+through ``submit_batches`` (round k+1 submitted before round k resolves,
+``governor=False``, route warm): wire == the CPU provider's, one launch a
+round, H2D bytes == regions + alignment + metadata; (c) fan-in of 4
+submitter threads x 16 partitions; (d) the ticketed verify of v2 batches
+and MsgVer1 wrappers, and CrcMismatch; (e) close() with tickets in flight;
+(f) the engine route's times beside the synchronous route's and the
+native CRC's, its host split, produce / verify msgs/s three ways,
+stage_latency, the busy share and a fresh process's time to an open
+route; (g) the governed defaults' route split.  A counted leg fails if a
+job of it went to the CPU.  Any mismatch exits non-zero.
 
 The last two lines of standard output are a ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -33,6 +48,7 @@ import math
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import zlib
 
@@ -40,9 +56,11 @@ import numpy as np
 import torch
 
 from librdkafka_tpu_torch import (CpuCodecProvider, GpuCodecProvider,
-                                  read_batches, write_batches)
+                                  read_batches, submit_batches, submit_read,
+                                  write_batches)
 from librdkafka_tpu_torch.ops import cpu as native
 from librdkafka_tpu_torch.ops import crc32c_torch as crc
+from librdkafka_tpu_torch.ops.engine import AsyncOffloadEngine
 from librdkafka_tpu_torch.ops.packing import pad_left
 from librdkafka_tpu_torch.protocol.msgset import (CrcMismatch, Record,
                                                   iter_legacy_crc_regions,
@@ -527,6 +545,411 @@ def phase_main_path(gpu, cpu_p, work: dict) -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------- phase 4 --
+
+def fallback(cpu_p):
+    """The engine's CPU fallback: the native provider, per polynomial."""
+    return lambda bufs, poly: (cpu_p.crc32c_many(bufs) if poly == "crc32c"
+                               else cpu_p.crc32_many(bufs))
+
+
+def no_cpu_route(eng, what: str) -> None:
+    """A counted leg ran with the device route open: no job of it went to
+    the CPU (warmup miss, governor route or quorum fallback)."""
+    bad = {k: eng.stats[k] for k in ("warmup_miss_jobs", "routed_cpu_jobs",
+                                     "cpu_fallback_jobs") if eng.stats[k]}
+    check(not bad, f"{what}: jobs served on the CPU: {bad}")
+
+
+def wait_for(cond, what: str, timeout: float = 60.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < deadline, f"timed out waiting for {what}")
+        time.sleep(0.0002)
+
+
+def cold_start_s() -> str:
+    """A fresh process: import, GpuCodecProvider() with its defaults, and
+    wait_warm (the transport probe in its subprocess, with no cached
+    reading; CUDA init, constants, the warm launch; the kernel's .so is
+    already built)."""
+    code = ("import time; t0 = time.perf_counter()\n"
+            "from librdkafka_tpu_torch import GpuCodecProvider\n"
+            "p = GpuCodecProvider(); t1 = time.perf_counter()\n"
+            "ok = p.wait_warm(300); t2 = time.perf_counter()\n"
+            "print(ok, round(t1 - t0, 3), round(t2 - t1, 3), "
+            "p.transport_mb_s); p.close()\n")
+    import os
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:   # no cached probe reading
+        res = subprocess.run([sys.executable, "-c", code],
+                             capture_output=True, text=True, timeout=600,
+                             env={**os.environ, "TMPDIR": tmp})
+    check(res.returncode == 0, f"cold-start process failed: {res.stderr}")
+    ok, t_create, t_warm, mb_s = res.stdout.split()
+    check(ok == "True", "a fresh GpuCodecProvider's route did not open")
+    return (f"import + create {t_create} s, create -> wait_warm "
+            f"{t_warm} s (transport probe {float(mb_s):.0f} MB/s)")
+
+
+def engine_exact(cpu_p, rng) -> int:
+    """(a): test_0018's sizes, 8 rotated rounds all submitted before any
+    resolves, each its own launch (the next is submitted once the last
+    has started), so ring slots are refilled while earlier copies may be
+    in flight; then a crc32 job, and a crc32c + crc32 pair popped together
+    (one fused launch).  Every result == the native oracle; the first
+    launch's staged inputs through the plain version == its outputs.
+    Returns the max abs error of that comparison."""
+    eng = AsyncOffloadEngine(depth=2, fanin_window_s=0.1, min_batches=4,
+                             governor=True, warmup=True,
+                             cpu_fallback=fallback(cpu_p))
+    staged, outs = [], []
+    real_launch, real_read = crc.launch_slot, crc.read_slot
+
+    def launch_rec(slot, plan, lane):
+        if not staged:
+            staged.append((plan, slot.host[:plan.flat_bytes].clone()))
+        real_launch(slot, plan, lane)
+
+    def read_rec(slot, plan):
+        got = real_read(slot, plan)
+        if staged and plan is staged[0][0] and not outs:
+            outs.append(got)
+        return got
+
+    crc.launch_slot, crc.read_slot = launch_rec, read_rec
+    try:
+        check(eng.warm_wait(300), "the engine's lane did not warm")
+        bufs = [b"", b"a", b"123456789", bytes(100)] + [
+            rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+            for n in (1, 63, 1000, 65535, 65536, 65537, 200_000)]
+        rounds = [bufs[r % 11:] + bufs[:r % 11] for r in range(8)]
+        l0 = crc.launches
+        tickets = []
+        for b in rounds:
+            n = eng.stats["launches"]
+            tickets.append(eng.submit(b, "crc32c", window=False))
+            wait_for(lambda: eng.stats["launches"] > n, "a round's launch")
+        for b, t in zip(rounds, tickets):
+            check(t.result(60).tolist() == [native.crc32c(x) for x in b],
+                  "engine crc32c != oracle with ring slots reused")
+        t = eng.submit(bufs, "crc32", window=False)
+        check(t.result(60).tolist() == [zlib.crc32(x) for x in bufs],
+              "engine crc32 != oracle")
+        bufs_c = [rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+                  for n in (900, 70_000)]
+        bufs_l = [rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+                  for n in (4096, 17)]
+        t1 = eng.submit(bufs_c, "crc32c", window=True)
+        t2 = eng.submit(bufs_l, "crc32", window=True)
+        check(t1.result(60).tolist() == [native.crc32c(x) for x in bufs_c]
+              and t2.result(60).tolist() == [zlib.crc32(x) for x in bufs_l],
+              "fused launch != oracle")
+        check(eng.stats["fused_launches"] == 1,
+              f"fused_launches {eng.stats['fused_launches']}, not 1")
+        check(eng.stats["launches"] == 10 and crc.launches - l0 == 10,
+              f"(a) took {eng.stats['launches']} engine launches, "
+              f"{crc.launches - l0} kernel launches, not 10")
+        no_cpu_route(eng, "(a)")
+        plan, flat = staged[0]
+        ref = crc.crc_segments_reference(
+            flat.cuda(), torch.from_numpy(plan.offsets),
+            torch.from_numpy(plan.lengths), torch.from_numpy(plan.sel))
+        err = int(np.abs(ref.cpu().numpy() - outs[0].astype(np.int64)).max())
+        check(err == 0, "an engine launch != the plain version on its "
+              "staged inputs")
+        rings = eng.devices_snapshot()[0]["staging_bytes"]
+    finally:
+        crc.launch_slot, crc.read_slot = real_launch, real_read
+        eng.close()
+    print(f"phase 4a: engine exact: 8 rounds in flight (ring reuse), crc32, "
+          f"fused pair: 10 launches, fused_launches 1; pinned staging "
+          f"{rings} B; staged launch == plain version")
+    return err
+
+
+def pipelined(prov, parts, rounds: int) -> list:
+    """Rounds of submit_batches, round k+1 submitted before round k
+    resolves (round k is advanced first, so its CRC goes out ahead of
+    round k+1's compress job)."""
+    wires = []
+    pend = submit_batches(prov, parts, "lz4", NOW_MS)
+    for k in range(rounds):
+        pend.done()
+        nxt = (submit_batches(prov, parts, "lz4", NOW_MS)
+               if k + 1 < rounds else None)
+        wires.append(pend.result(120))
+        pend = nxt
+    return wires
+
+
+def pipelined_read(prov, wire, rounds: int) -> list:
+    out = []
+    pend = submit_read(prov, wire)
+    for k in range(rounds):
+        nxt = submit_read(prov, wire) if k + 1 < rounds else None
+        out.append(pend.result(120))
+        pend = nxt
+    return out
+
+
+def engine_split(regions) -> dict:
+    """Host-clock ms (median of 20, each step ending in a device sync) of
+    the engine route's steps for one round's regions, taken one by one as
+    the engine takes them on a lane of its own."""
+    lane = crc.LaneBuffers(torch.device("cuda", 0))
+    lens = np.array([len(r) for r in regions], np.int64)
+    sel = np.zeros(len(regions), np.int32)
+    plan = crc.plan_slot(lens, sel)
+    slot = crc.Slot(crc.slot_bucket(plan.nbytes), pin=True)
+    joined = b"".join(regions)
+    crc.fill_slot(slot, plan, [joined])
+    crc.send_slot(slot, plan, lane)
+    crc.launch_slot(slot, plan, lane)
+    check(crc.read_slot(slot, plan).tolist()
+          == [native.crc32c(r) for r in regions], "engine split != oracle")
+
+    def plan_fill():
+        crc.fill_slot(slot, crc.plan_slot(lens, sel), [joined])
+
+    return {
+        "join at submit": host_ms(lambda: b"".join(regions), 20),
+        "plan + pinned fill": host_ms(plan_fill, 20),
+        "async H2D (pinned, lane stream)": host_ms(
+            lambda: crc.send_slot(slot, plan, lane), 20),
+        "launch + D2H of the CRCs": host_ms(
+            lambda: crc.launch_slot(slot, plan, lane), 20),
+        "readback (event + view)": host_ms(
+            lambda: crc.read_slot(slot, plan), 20),
+    }
+
+
+def engine_timeline(prov, regions, calls: int = 20) -> dict:
+    """Where one engine ``crc32c_many`` of a round's regions spends its
+    host-clock time, from the port's tracer (obs/trace.py): submit to the
+    dispatch thread's device_launch span, the span itself, its end to the
+    readback span, the readback, and the readback's end to the caller's
+    return.  Medians over ``calls`` calls, in ms."""
+    from librdkafka_tpu_torch.obs import trace
+    marks = []
+    trace.enable()
+    try:
+        for _ in range(calls):
+            torch.cuda.synchronize()
+            t0 = trace.now()
+            prov.crc32c_many(regions)
+            marks.append((t0, trace.now()))
+        events = trace.collect_events()
+    finally:
+        trace.disable()
+    spans = {n: sorted((e["ts"] * 1e3, e["dur"] * 1e3) for e in events
+                       if e["name"] == n and e.get("ph") == "X")
+             for n in ("device_launch", "readback")}
+    check(len(spans["device_launch"]) == calls
+          and len(spans["readback"]) == calls,
+          f"traced {len(spans['device_launch'])} launches, "
+          f"{len(spans['readback'])} readbacks for {calls} calls")
+    steps = {"submit -> launch span": [], "launch span (plan, fill, H2D, "
+             "kernel, D2H queued)": [], "launch end -> readback": [],
+             "readback span (event wait, view)": [],
+             "readback end -> caller returns": [], "whole call": []}
+    for (t0, t1), (l0, ld), (r0, rd) in zip(marks, spans["device_launch"],
+                                            spans["readback"]):
+        for k, v in zip(steps, (l0 - t0, ld, r0 - (l0 + ld), rd,
+                                t1 - (r0 + rd), t1 - t0)):
+            steps[k].append(v / 1e6)
+    return {k: statistics.median(v) for k, v in steps.items()}
+
+
+def timed_wait_ms(reps: int = 50) -> float:
+    """Median host-clock ms of a 0.2 ms ``Condition.wait`` on this host:
+    the engine's dispatch loop lingers that long for a next submission
+    before it reads back a launch."""
+    cond = threading.Condition()
+    times = []
+    with cond:
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            cond.wait(0.0002)
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_engine(cpu_p, gpu_sync, work: dict, rng) -> dict:
+    parts, wire_cpu = work["parts"], work["wire_cpu"]
+    regions = work["regions"]
+    nmsgs = PARTITIONS * RECORDS
+    real = sum(len(r) for r in regions)
+    lens = np.array([len(r) for r in regions], np.int64)
+    meta = (16 * len(crc.plan_tiles(np.cumsum(lens) - lens, lens))
+            + 8 * math.ceil(len(regions) / 2))
+    print(f"phase 4: cold start in a fresh process: {cold_start_s()}")
+    err = engine_exact(cpu_p, rng)
+    counted = 0
+
+    # (b) pipelined produce, governor off, route open: the counted leg
+    t0 = time.perf_counter()
+    prov = GpuCodecProvider(min_batches=1, governor=False)
+    check(prov.wait_warm(300), "the pipelined provider's route is closed")
+    t_open = time.perf_counter() - t0
+    eng = prov._get_engine()
+    crc.launches = 0
+    crc.h2d_bytes = 0
+    wires = pipelined(prov, parts, ROUNDS)
+    torch.cuda.synchronize()
+    launches, h2d = crc.launches, crc.h2d_bytes
+    counted += launches
+    check(all(w == wire_cpu for w in wires),
+          "pipelined wire bytes != CPU provider's")
+    check(launches == ROUNDS and eng.stats["launches"] == ROUNDS,
+          f"{ROUNDS} pipelined rounds took {launches} kernel launches "
+          f"({eng.stats['launches']} engine launches), not one each")
+    check(h2d == ROUNDS * (real + (-real % 16) + meta),
+          f"pipelined rounds copied {h2d} B to the card, not "
+          f"{ROUNDS} x (regions {real} + alignment + metadata {meta})")
+    no_cpu_route(eng, "(b) pipelined produce")
+    print(f"phase 4b: {ROUNDS} pipelined rounds (submit_batches, round k+1 "
+          f"before k resolves): wire == CPU provider, {launches} launches, "
+          f"h2d {h2d} B = {ROUNDS} x ({real} + {-real % 16} + {meta}); "
+          f"route open {t_open:.3f} s after creation in this process")
+
+    # (c) fan-in: 4 submitters x 16 partitions, windowed, one round each
+    fan = GpuCodecProvider(min_batches=PARTITIONS, governor=False,
+                           fanin_us=20_000)
+    check(fan.wait_warm(300), "the fan-in provider's route is closed")
+    feng = fan._get_engine()
+    want = [native.crc32c(r) for r in regions]
+    crc.launches = 0
+    for _ in range(ROUNDS):
+        go = threading.Barrier(4)
+        got = [None] * 4
+
+        def submitter(i):
+            go.wait()
+            got[i] = fan.crc32c_submit(regions[16 * i:16 * i + 16])
+
+        ths = [threading.Thread(target=submitter, args=(i,))
+               for i in range(4)]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(60)
+        check(all(t is not None for t in got), "fan-in submit declined")
+        check(sum((t.result(60).tolist() for t in got), []) == want,
+              "fan-in CRCs != oracle")
+    torch.cuda.synchronize()
+    fan_launches = crc.launches
+    counted += fan_launches
+    check(feng.stats["aggregated"] > 0, "fan-in never aggregated")
+    check(fan_launches < 4 * ROUNDS,
+          f"fan-in: {fan_launches} launches for {ROUNDS} rounds of 4 jobs")
+    no_cpu_route(feng, "(c) fan-in")
+    print(f"phase 4c: fan-in, 4 threads x 16 partitions x {ROUNDS} rounds: "
+          f"{fan_launches} launches, aggregated {feng.stats['aggregated']}, "
+          f"fanin_waits {feng.stats['fanin_waits']}")
+    fan.close()
+
+    # (d) ticketed verify of v2 batches and MsgVer1 lz4 wrappers
+    blobs = wire_cpu + work["legacy"]
+    crc.launches = 0
+    recs = submit_read(prov, blobs).result(120)
+    torch.cuda.synchronize()
+    ver_launches = crc.launches
+    counted += ver_launches
+    check([[r.value for r in p] for p in recs]
+          == [[r.value for r in p] for p in parts + parts],
+          "ticketed verify: records differ")
+    check(ver_launches >= 1, "ticketed verify launched no kernel")
+    bad = bytearray(wire_cpu[7])
+    bad[-1] ^= 0x01
+    try:
+        submit_read(prov, [bytes(bad)] + work["legacy"][:2]).result(120)
+        fail("ticketed verify: a flipped byte did not raise CrcMismatch")
+    except CrcMismatch:
+        pass
+    no_cpu_route(eng, "(d) ticketed verify")
+    print(f"phase 4d: ticketed verify of {len(wire_cpu)} v2 batches + "
+          f"{len(work['legacy'])} MsgVer1 lz4 wrappers: {ver_launches} "
+          f"launches; CrcMismatch on a flipped byte")
+
+    # (e) close() with tickets in flight
+    closing = AsyncOffloadEngine(depth=2, min_batches=1, governor=False,
+                                 warmup=True, cpu_fallback=fallback(cpu_p))
+    check(closing.warm_wait(300), "closing engine did not warm")
+    tickets = [closing.submit(regions, "crc32c", window=False)
+               for _ in range(16)]
+    closing.close()
+    check(all(t.done() and t.result(0).tolist() == want for t in tickets),
+          "close() left a ticket unresolved or wrong")
+    print("phase 4e: close() with 16 tickets in flight resolved all, exact")
+
+    # (f) numbers, all in this call
+    crc_ms = {"engine": host_ms(lambda: prov.crc32c_many(regions), 20),
+              "sync GPU": host_ms(lambda: gpu_sync.crc32c_many(regions), 20),
+              "native": host_ms(lambda: cpu_p.crc32c_many(regions), 20)}
+    print("  crc32c_many of one round's 64 regions, host clock ms: "
+          + "; ".join(f"{k} {v:.4f}" for k, v in crc_ms.items()))
+    print("  engine route of one round, host clock ms: " + "; ".join(
+        f"{k} {v:.4f}" for k, v in engine_split(regions).items()))
+    print("  engine crc32c_many timeline, traced, median ms: " + "; ".join(
+        f"{k} {v:.4f}" for k, v in engine_timeline(prov, regions).items())
+          + f"; a 0.2 ms Condition.wait takes {timed_wait_ms():.4f}")
+    eng.stage_latency_snapshot()                 # drop the windows so far
+    pipelined(prov, parts, ROUNDS)
+    lat = eng.stage_latency_snapshot()
+    print("  stage_latency over one pipelined leg (us, avg/p50/p99): "
+          + "; ".join(f"{k} {lat[k]['avg']}/{lat[k]['p50']}/{lat[k]['p99']}"
+                      for k in ("submit_wait", "launch", "reap")))
+    t_prod = {"cpu": 0.0, "sync GPU": 0.0, "pipelined GPU": 0.0}
+    t_ver = dict.fromkeys(t_prod, 0.0)
+    for _ in range(2):                       # a warm turn, then timed turns
+        for name, fn, rd in (
+                ("cpu", lambda: [write_batches(cpu_p, parts, "lz4", NOW_MS)
+                                 for _ in range(ROUNDS)],
+                 lambda: [read_batches(cpu_p, wire_cpu)
+                          for _ in range(ROUNDS)]),
+                ("sync GPU", lambda: [write_batches(gpu_sync, parts, "lz4",
+                                                    NOW_MS)
+                                      for _ in range(ROUNDS)],
+                 lambda: [read_batches(gpu_sync, wire_cpu)
+                          for _ in range(ROUNDS)]),
+                ("pipelined GPU", lambda: pipelined(prov, parts, ROUNDS),
+                 lambda: pipelined_read(prov, wire_cpu, ROUNDS))):
+            t0 = time.perf_counter()
+            fn()
+            t1 = time.perf_counter()
+            rd()
+            t_prod[name] = t1 - t0
+            t_ver[name] = time.perf_counter() - t1
+    for name in t_prod:
+        print(f"  {name}: produce {ROUNDS * nmsgs / t_prod[name]:.0f} msgs/s,"
+              f" verify {ROUNDS * nmsgs / t_ver[name]:.0f} msgs/s "
+              f"({ROUNDS} rounds)")
+    busy = device_busy_share(lambda: pipelined(prov, parts, ROUNDS))
+    print("  device busy share of pipelined produce rounds: "
+          + ("not measured (profiler saw no device time)" if busy is None
+             else f"{busy:.6f}"))
+    no_cpu_route(eng, "(f) timed legs")
+    prov.close()
+
+    # (g) the governed leg, reference defaults: its route split, reported
+    gov = GpuCodecProvider()
+    check(gov.wait_warm(300), "the default provider's route is closed")
+    wires = pipelined(gov, parts, ROUNDS)
+    check(all(w == wire_cpu for w in wires),
+          "governed pipelined wire != CPU provider's")
+    g = gov._get_engine()
+    split = {k: g.stats[k] for k in ("launches", "routed_cpu_jobs",
+                                     "explore_routes", "cpu_fallback_jobs",
+                                     "warmup_miss_jobs")}
+    print(f"  governed leg (GpuCodecProvider() defaults), {ROUNDS} rounds: "
+          f"{split}; governor {g.governor_snapshot()}")
+    gov.close()
+    print("phase 4: ok (engine exact, pipelined wire == CPU provider, one "
+          "launch per round, fan-in, ticketed verify, close)")
+    return {"launches": counted, "max_err": err}
+
+
 def kernel_line(main: dict, timing: dict, max_err: int) -> dict:
     """The crc_rows entry at the main path's shape (its produce regions
     as packed segments)."""
@@ -546,10 +969,14 @@ def main() -> None:
     cpu_p = CpuCodecProvider()
     work = workload(cpu_p)
     max_err, timing = phase_kernel(rng, work["regions"])
-    gpu = GpuCodecProvider(min_batches=1)
+    gpu = GpuCodecProvider(min_batches=1, pipeline_depth=0,
+                           min_transport_mb_s=0)
+    check(gpu.wait_warm(300), "the synchronous route did not warm")
     main_path = phase_main_path(gpu, cpu_p, work)
+    engine = phase_engine(cpu_p, gpu, work, rng)
     gpu.close()
-    line = kernel_line(main_path, timing, max_err)
+    main_path["launches"] += engine["launches"]
+    line = kernel_line(main_path, timing, max(max_err, engine["max_err"]))
     print(f"{dev['smi']}")
     print(json.dumps({"kernels": [line]}))
     print(json.dumps({"ok": True, "device": {

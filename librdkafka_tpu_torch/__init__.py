@@ -6,16 +6,20 @@ device: the MessageSet v2 codec and its batched CRC offload.
 
 - ``utils``    — CRC32C/CRC32 tables and combines, varint, segmented buffers
 - ``protocol`` — protocol constants, MessageSet v2 and v0/v1 writer/reader
-- ``ops``      — native C++ CPU codec provider (ctypes), the GPU provider
-                 and its hand-written CUDA CRC kernel (``csrc/crc_rows.cu``)
-- ``client``   — the broker's writer phase and fetch verify, synchronous
-                 route (``write_batches`` / ``read_batches``)
+- ``ops``      — native C++ CPU codec provider (ctypes), the GPU provider,
+                 its async offload engine (``ops/engine.py``) and the
+                 hand-written CUDA CRC kernel (``csrc/crc_rows.cu``)
+- ``client``   — the broker's writer phase and fetch verify, ticketed
+                 (``submit_batches`` / ``submit_read``) or resolved at once
+                 (``write_batches`` / ``read_batches``)
+- ``analysis``, ``obs`` — lockdep / lockset checkers, tracing and metrics
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
 
-from .client.codec_phase import read_batches, write_batches  # noqa: F401
+from .client.codec_phase import (read_batches, submit_batches,  # noqa: F401
+                                 submit_read, write_batches)
 from .ops.cpu import CpuCodecProvider  # noqa: F401
 from .ops.gpu import GpuCodecProvider  # noqa: F401

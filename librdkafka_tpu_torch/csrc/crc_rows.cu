@@ -88,6 +88,8 @@
 //        -Xcompiler -fPIC (ops/crc32c_torch.py does this at first use).
 
 #include <cstdint>
+#include <mutex>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -396,27 +398,34 @@ extern "C" int crc_segments_launch(const void* flat, const void* tiles,
       (reinterpret_cast<uintptr_t>(consts) & 15))
     return static_cast<int>(cudaErrorInvalidValue);
   // Per device and polynomial count, once: the shared-memory opt-in and
-  // how many blocks fit on the card.
+  // how many blocks fit on the card.  Callers may launch from several
+  // threads, so the table is filled under a lock.
   static int cap[64][3];
+  static std::mutex cap_mu;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   const int smem = 2 * kTile + npolys * kPolyWords * 4;
-  if (cap[dev][npolys] == 0) {
-    int sms = 0, per_sm = 0;
-    if ((err = cudaFuncSetAttribute(
-             crc_segments_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-             2 * kTile + 2 * kPolyWords * 4)) != cudaSuccess ||
-        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev)) != cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, crc_segments_kernel, kThreads, smem)) != cudaSuccess)
-      return static_cast<int>(err);
-    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-    cap[dev][npolys] = sms * per_sm;
+  int64_t c;
+  {
+    std::lock_guard<std::mutex> lock(cap_mu);
+    if (cap[dev][npolys] == 0) {
+      int sms = 0, per_sm = 0;
+      if ((err = cudaFuncSetAttribute(
+               crc_segments_kernel,
+               cudaFuncAttributeMaxDynamicSharedMemorySize,
+               2 * kTile + 2 * kPolyWords * 4)) != cudaSuccess ||
+          (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                        dev)) != cudaSuccess ||
+          (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &per_sm, crc_segments_kernel, kThreads, smem)) != cudaSuccess)
+        return static_cast<int>(err);
+      if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+      cap[dev][npolys] = sms * per_sm;
+    }
+    c = cap[dev][npolys];
   }
-  const int64_t c = cap[dev][npolys];
   Args a{static_cast<const uint8_t*>(flat),
          static_cast<const int4*>(tiles),
          static_cast<const int32_t*>(sel),

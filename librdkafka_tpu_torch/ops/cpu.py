@@ -8,8 +8,7 @@ The GPU provider (ops/gpu.py) delegates its host-side codec work here, so
 both emit identical wire bytes.
 
 Left out of the copy: ``_ext()`` (the fast-lane extension's batched entry
-points) and the ``*_submit`` ticket methods, which belong to the client and
-async-engine slices of the port.
+points), which belongs to the client slice of the port.
 """
 from __future__ import annotations
 
@@ -453,3 +452,24 @@ class CpuCodecProvider:
     def crc32_many(self, bufs: list[bytes]) -> list[int]:
         """Legacy MsgVer0/1 zlib-poly CRC (reference: src/rdcrc32.c)."""
         return [zlib.crc32(bytes(b)) & 0xFFFFFFFF for b in bufs]
+
+    # ------------------------------------------------ ticket-shaped seam --
+    # The async offload submit interface, resolved eagerly: the work runs
+    # synchronously right here (no dispatch thread), but callers get the
+    # same Ticket contract as the GPU provider, so the codec phases run
+    # ONE submit/park/resolve code path for both providers.
+
+    def crc32c_submit(self, bufs: list[bytes]):
+        from .engine import SyncTicket
+        return SyncTicket(np.asarray(self.crc32c_many(bufs),
+                                     dtype=np.uint32))
+
+    def crc32_submit(self, bufs: list[bytes]):
+        from .engine import SyncTicket
+        return SyncTicket(np.asarray(self.crc32_many(bufs),
+                                     dtype=np.uint32))
+
+    def decompress_submit(self, codec: str, bufs: list[bytes],
+                          size_hints: list[int] | None = None):
+        from .engine import SyncTicket
+        return SyncTicket(self.decompress_many(codec, bufs, size_hints))

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from ..utils.crc import (TABLE8_CRC32, TABLE_CRC32C, ZERO_OP_CRC32,
-                         ZERO_OP_CRC32C)
+                         ZERO_OP_CRC32C, crc32c)
 
 BLOCK = 65536        # the TPU row width of the row contract (crc_rows)
 POLYS = ("crc32c", "crc32")   # sel value = index: 0 crc32c, 1 crc32
@@ -347,16 +347,21 @@ def _kernel_lib() -> ctypes.CDLL:
 
 
 _DEV_CONSTS: dict = {}
+_consts_lock = threading.Lock()
 
 
 def _device_consts(dev: torch.device) -> torch.Tensor:
     """Both polynomials' :func:`_kernel_consts` as one int32 tensor of
     uint32 bit patterns on ``dev``, uploaded once per device."""
     key = str(dev)
-    if key not in _DEV_CONSTS:
-        c = np.concatenate([_kernel_consts(p) for p in POLYS])
-        _DEV_CONSTS[key] = torch.from_numpy(c.view(np.int32)).to(dev)
-    return _DEV_CONSTS[key]
+    with _consts_lock:
+        if key not in _DEV_CONSTS:
+            c = np.concatenate([_kernel_consts(p) for p in POLYS])
+            t = torch.from_numpy(c.view(np.int32)).to(dev)
+            # landed before any stream reads it, not only this one's
+            torch.cuda.current_stream(dev).synchronize()
+            _DEV_CONSTS[key] = t
+        return _DEV_CONSTS[key]
 
 
 def _check_rows(data, terms, sel) -> tuple[int, int]:
@@ -475,18 +480,41 @@ def stage(flat: torch.Tensor, offsets: torch.Tensor, lengths: torch.Tensor,
     return out, args, (flat, meta, scratch)
 
 
-def launch(staged: tuple) -> torch.Tensor:
-    """Launch the kernel on torch's current stream; returns ``out``."""
+#: per device index, (stream, event) of the last kernel launch: launches
+#: on one card run one after another whatever their stream (see launch)
+_CHAIN: dict = {}
+_chain_lock = threading.Lock()
+
+
+def launch(staged: tuple, stream=None) -> torch.Tensor:
+    """Launch the kernel on ``stream`` (default: torch's current stream);
+    returns ``out``.
+
+    The grid is cooperative and its blocks wait on each other's tiles,
+    so two launches must never share the card: a launch on another
+    stream than the card's last one first waits, on the device, for
+    that one's end.  Launches go out one at a time under a lock, which
+    also makes each device's first launch (csrc/crc_rows.cu's occupancy
+    query) happen once."""
     global launches
     out, args, _alive = staged
     if len(out) == 0:
         return out
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    err = _kernel_lib().crc_segments_launch(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"crc_segments kernel launch failed: "
-                           f"cudaError {err}")
-    launches += 1
+    if stream is None:
+        stream = torch.cuda.current_stream(out.device)
+    lib = _kernel_lib()
+    with _chain_lock, torch.cuda.device(out.device):
+        last = _CHAIN.get(out.device.index)
+        if last is not None and last[0] != stream:
+            stream.wait_event(last[1])
+        err = lib.crc_segments_launch(*args, stream.cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"crc_segments kernel launch failed: "
+                               f"cudaError {err}")
+        done = torch.cuda.Event()
+        done.record(stream)
+        _CHAIN[out.device.index] = (stream, done)
+        launches += 1
     return out
 
 
@@ -548,3 +576,260 @@ def _crc_many(bufs, poly: str, device: torch.device) -> np.ndarray:
             res[start:stop] = out.cpu().numpy()
         start = stop
     return res
+
+
+# ------------------------------------------------------ engine staging --
+# The offload engine's form of the route (ops/engine.py): a launch is
+# filled into a pinned host slot, copied to the card with ONE
+# non-blocking copy on the lane's stream, launched on that stream into
+# device buffers the lane keeps, and its CRCs come back with one
+# non-blocking copy into the slot, so the host never waits on a launch
+# it does not read yet.
+
+SLOT_FLOOR = 1 << 20         # bytes of the smallest staging slot
+
+
+def _pow2(n: int, lo: int) -> int:
+    return max(lo, 1 << max(0, int(n) - 1).bit_length())
+
+
+def slot_bucket(nbytes: int) -> int:
+    """The staging ring a launch of ``nbytes`` (flat + metadata) takes
+    its slot from: the next power of two, at least SLOT_FLOOR."""
+    return _pow2(nbytes, SLOT_FLOOR)
+
+
+class Slot:
+    """One host staging slot of an engine lane, pinned when the lane is a
+    card.  ``host`` holds a launch's joined ``flat`` (rounded up to 16
+    bytes) and then its int64 metadata block (tiles, then sel); the CRCs
+    come back into ``out``.  ``event`` marks the end of the last launch
+    that used the slot (its copies included): the slot is filled again
+    only after it."""
+
+    __slots__ = ("cap", "pin", "host", "out", "event", "busy")
+
+    def __init__(self, cap: int, pin: bool):
+        self.cap = cap
+        self.pin = pin
+        self.busy = False       # taken by a launch not read back yet
+        self.host = torch.empty((cap,), dtype=torch.uint8, pin_memory=pin)
+        self.out = torch.empty((1024,), dtype=torch.int64, pin_memory=pin)
+        self.event = None
+
+    def wait(self) -> None:
+        """Block until the slot's last launch no longer reads it."""
+        if self.event is not None:
+            self.event.synchronize()
+            self.event = None
+
+    def nbytes(self) -> int:
+        return self.host.numel() + self.out.numel() * 8
+
+
+class LaneBuffers:
+    """The device buffers an engine lane reuses from launch to launch:
+    ``flat`` (flat + metadata, as the slot holds them), ``scratch`` (the
+    kernel's tile registers, zero between launches: the kernel leaves it
+    as it found it) and ``out``.  One lane's copies and launches go in
+    order on its one stream, so launch k+1's copy into ``flat`` starts
+    after launch k's kernel has read it.  ``stream`` is None on a CPU
+    lane."""
+
+    __slots__ = ("device", "stream", "flat", "scratch", "out")
+
+    def __init__(self, device: torch.device):
+        self.device = torch.device(device)
+        self.stream = (torch.cuda.Stream(self.device)
+                       if self.device.type == "cuda" else None)
+        self.flat = self.scratch = self.out = None
+
+    def reserve(self, nbytes: int, ntiles: int, S: int) -> None:
+        """Grow the buffers to hold a launch (on the lane's stream, so a
+        freed buffer is reused only after the launches queued on it)."""
+        dev = self.device
+        if self.flat is None or self.flat.numel() < nbytes:
+            self.flat = torch.empty((slot_bucket(nbytes),),
+                                    dtype=torch.uint8, device=dev)
+        if self.scratch is None or self.scratch.numel() < ntiles:
+            self.scratch = torch.zeros((_pow2(ntiles, 1024),),
+                                       dtype=torch.int64, device=dev)
+        if self.out is None or self.out.numel() < S:
+            self.out = torch.empty((_pow2(S, 1024),), dtype=torch.int64,
+                                   device=dev)
+
+
+class SlotPlan:
+    """One launch of the engine's route, planned by :func:`plan_slot`:
+    ``S`` segments in ``flat_bytes`` (a multiple of 16), then their tile
+    list and sel, ``nbytes`` in all."""
+
+    __slots__ = ("S", "flat_bytes", "nbytes", "ntiles", "sel_at",
+                 "poly_first", "npolys", "offsets", "lengths", "sel",
+                 "meta")
+
+
+def plan_slot(lengths: np.ndarray, sel: np.ndarray) -> SlotPlan:
+    """Plan a launch of segments laid back to back: ``lengths`` (S,)
+    and ``sel`` (S,) their polynomials.  Host work only; the slot's
+    size is ``nbytes``."""
+    lengths = np.asarray(lengths, dtype=np.int64)
+    sel = np.asarray(sel, dtype=np.int32)
+    S = len(lengths)
+    offsets = np.cumsum(lengths) - lengths
+    total = int(lengths.sum())
+    if total > (1 << 31) - 16:
+        raise ValueError("a launch must hold under 2 GiB: the kernel's tile "
+                         "positions are int32")
+    tiles = plan_tiles(offsets, lengths)
+    sel_raw = np.concatenate([sel, np.zeros(S % 2, np.int32)])
+    crc32 = sel != 0
+    uniform = S == 0 or crc32.all() or not crc32.any()
+    plan = SlotPlan()
+    plan.S, plan.flat_bytes = S, total + (-total % 16)
+    plan.ntiles, plan.sel_at = len(tiles), plan.flat_bytes + tiles.nbytes
+    plan.nbytes = plan.sel_at + sel_raw.nbytes
+    plan.poly_first = int(crc32[0]) if uniform and S else 0
+    plan.npolys = 1 if uniform else 2
+    plan.offsets, plan.lengths, plan.sel = offsets, lengths, sel
+    plan.meta = np.concatenate([tiles.reshape(-1).view(np.uint8),
+                                sel_raw.view(np.uint8)])
+    return plan
+
+
+def fill_slot(slot: Slot, plan: SlotPlan, pieces) -> None:
+    """Write a planned launch into ``slot``: ``pieces`` (bytes-like)
+    joined are its segments back to back; the metadata follows.  Waits
+    for the slot's last launch first."""
+    if plan.nbytes > slot.cap:
+        raise ValueError(f"launch of {plan.nbytes} B over its slot's "
+                         f"{slot.cap}")
+    slot.wait()
+    host = slot.host.numpy()
+    pos = 0
+    for p in pieces:
+        n = len(p)
+        host[pos:pos + n] = np.frombuffer(p, dtype=np.uint8)
+        pos += n
+    if pos != int(plan.lengths.sum()):
+        raise ValueError(f"pieces hold {pos} B, the plan "
+                         f"{int(plan.lengths.sum())}")
+    host[pos:plan.flat_bytes] = 0
+    host[plan.flat_bytes:plan.nbytes] = plan.meta
+    if slot.out.numel() < plan.S:
+        slot.out = torch.empty((_pow2(plan.S, 1024),), dtype=torch.int64,
+                               pin_memory=slot.pin)
+
+
+def send_slot(slot: Slot, plan: SlotPlan, lane: LaneBuffers) -> None:
+    """Queue the slot's H2D copy on the lane's stream (a no-op on a CPU
+    lane, whose launch reads the slot in place)."""
+    global h2d_bytes
+    if lane.stream is None:
+        return
+    with torch.cuda.stream(lane.stream):
+        lane.reserve(plan.nbytes, plan.ntiles, plan.S)
+        lane.flat[:plan.nbytes].copy_(slot.host[:plan.nbytes],
+                                      non_blocking=True)
+    with _chain_lock:
+        h2d_bytes += plan.nbytes
+
+
+def launch_slot(slot: Slot, plan: SlotPlan, lane: LaneBuffers) -> None:
+    """Queue the kernel on the slot's bytes and the D2H copy of its CRCs
+    into ``slot.out``, then mark the slot's event.  A CPU lane runs
+    :func:`crc_segments` on the slot in place (the plain version)."""
+    if plan.S == 0:
+        return
+    if lane.stream is None:
+        flat = slot.host[:plan.flat_bytes]
+        slot.out[:plan.S] = crc_segments(
+            flat, torch.from_numpy(plan.offsets),
+            torch.from_numpy(plan.lengths), torch.from_numpy(plan.sel))
+        return
+    base = lane.flat.data_ptr()
+    out = lane.out[:plan.S]
+    args = (base, base + plan.flat_bytes, base + plan.sel_at, None,
+            _device_consts(lane.device).data_ptr(), lane.scratch.data_ptr(),
+            out.data_ptr(), plan.ntiles, plan.poly_first, plan.npolys)
+    launch((out, args, None), lane.stream)
+    with torch.cuda.stream(lane.stream):
+        slot.out[:plan.S].copy_(out, non_blocking=True)
+        slot.event = torch.cuda.Event()
+        slot.event.record(lane.stream)
+
+
+def read_slot(slot: Slot, plan: SlotPlan) -> np.ndarray:
+    """The launch's CRCs, (S,) uint32, once its copy back has landed."""
+    slot.wait()
+    return slot.out[:plan.S].numpy().astype(np.uint32)
+
+
+# ------------------------------------------------------ warm registry --
+# The port of crc32c_jax.py's warm registry (kernel_ready, ready_kernel,
+# warm_kernel, warm_bucket_count), keyed by device.  One compiled kernel
+# serves every shape, so the JAX package's per-(B, 64 KB) bucket sweep
+# has no counterpart: a device is warm or it is not.  On a card, warm
+# means the nvcc build, the constants uploaded to that device, and one
+# launch on zeros (under CUDA's lazy module loading the first launch
+# pays the module load).  On the CPU it means the host tables the plain
+# version reads (_kernel_consts, and _shift_tables at the chunk lengths
+# of rows up to 256 KB).
+
+_READY: dict[str, bool] = {}
+_warm_lock = threading.Lock()
+
+
+def _dev_key(device) -> str:
+    """Registry key of a device ("cuda:N" with the index resolved, or
+    "cpu"); None is the card torch would pick."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)
+
+
+def kernel_ready(device=None) -> bool:
+    """True once :func:`warm_kernel` has run for ``device``."""
+    return _dev_key(device) in _READY
+
+
+def ready_kernel(device=None):
+    """The warmed kernel wrapper for ``device`` (:func:`crc_segments`,
+    every shape), or None before :func:`warm_kernel`."""
+    return crc_segments if kernel_ready(device) else None
+
+
+def warm_bucket_count(device=None) -> int:
+    """Warm kernels on ``device``: 1 or 0 (devices_snapshot's
+    ``warm_buckets``)."""
+    return int(kernel_ready(device))
+
+
+def warm_kernel(device=None) -> None:
+    """Make ``device`` warm (see above).  Idempotent and safe from any
+    thread: the first caller does the work under a lock, later ones
+    wait for it, so a device's first launch happens once."""
+    key = _dev_key(device)
+    if key in _READY:
+        return
+    with _warm_lock:
+        if key in _READY:
+            return
+        dev = torch.device(key)
+        if dev.type == "cuda":
+            _kernel_lib()
+            zeros = torch.zeros((16,), dtype=torch.uint8, device=dev)
+            got = crc_segments(zeros, torch.zeros(1, dtype=torch.int64),
+                               torch.full((1,), 16, dtype=torch.int64),
+                               torch.zeros(1, dtype=torch.int32))
+            if int(got.cpu()[0]) != crc32c(bytes(16)):
+                raise RuntimeError(f"warm launch on {key} returned a wrong "
+                                   f"CRC")
+        else:
+            for p in POLYS:
+                _kernel_consts(p)
+                for w in range(12, 19):      # rows of 4 KB to 256 KB
+                    _shift_tables(_pick_kl(1 << w)[1], p)
+        _READY[key] = True
+

@@ -1,7 +1,10 @@
 """Tests of the port that need a CUDA card: the hand-written segment kernel
 (csrc/crc_rows.cu), through ``crc_rows`` and ``crc_segments``, against its
-plain versions and the CPU oracles, and the GPU provider on its default
-device.  Marked ``gpu``; each skips on a
+plain versions and the CPU oracles, the GPU provider on its default
+device (synchronous route), and the async offload engine on the card
+(pinned staging rings reused while copies are in flight, the fused
+launch, one launch per round, the H2D bytes, close with tickets in
+flight, first launches from two threads).  Marked ``gpu``; each skips on a
 host without CUDA.  On a card (tests/conftest.py imports jax, which the
 GPU host lacks):
 
@@ -51,7 +54,8 @@ def test_kernel_equals_plain_and_oracle(card, B, N):
 
 
 def test_provider_round_trip_on_card(card):
-    prov = GpuCodecProvider(min_batches=1)
+    prov = GpuCodecProvider(min_batches=1, pipeline_depth=0)
+    assert prov.wait_warm(300)      # its warm launch before the counts
     assert prov.device.type == "cuda"
     parts = [[Record(value=b"v%d" % i * 100) for i in range(50)]
              for _ in range(4)]
@@ -95,7 +99,8 @@ def test_segment_kernel_equals_plain_and_oracle(card, mode):
 
 
 def test_produce_round_copies_no_padding(card):
-    prov = GpuCodecProvider(min_batches=1)
+    prov = GpuCodecProvider(min_batches=1, pipeline_depth=0)
+    assert prov.wait_warm(300)      # its warm launch before the counts
     parts = [[Record(value=b"%d" % i * 300) for i in range(40)]
              for _ in range(8)]
     before = crc.h2d_bytes
@@ -106,3 +111,130 @@ def test_produce_round_copies_no_padding(card):
     meta = 16 * len(tiles) + 8 * -(-S // 2)       # descriptors and sel
     # the regions' own bytes, rounded up to 16, and the metadata: no rows
     assert crc.h2d_bytes - before == real + (-real % 16) + meta
+
+
+# ------------------------------------------------ the engine on the card --
+
+def _fallback(bufs, poly):
+    p = native.CpuCodecProvider()
+    return p.crc32c_many(bufs) if poly == "crc32c" else p.crc32_many(bufs)
+
+
+def _oracle(bufs, poly):
+    return [native.crc32c(b) if poly == "crc32c" else zlib.crc32(b)
+            for b in bufs]
+
+
+@pytest.fixture
+def engine(card):
+    from librdkafka_tpu_torch.ops.engine import AsyncOffloadEngine
+    eng = AsyncOffloadEngine(depth=2, fanin_window_s=0.1, min_batches=4,
+                             governor=True, warmup=True,
+                             cpu_fallback=_fallback)
+    assert eng.warm_wait(300)
+    yield eng
+    eng.close()
+
+
+def test_engine_ring_reuse_in_flight_exact(engine):
+    """Rounds submitted before any resolves: ring slots are refilled while
+    earlier launches' copies may still be in flight."""
+    rng = np.random.default_rng(40)
+    bufs = [b"", b"a", b"123456789", bytes(100)] + [
+        rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+        for n in [1, 63, 1000, 65535, 65536, 65537, 200_000]]
+    rounds = [bufs[r:] + bufs[:r] for r in range(8)]
+    before = crc.launches
+    tickets = [engine.submit(b, "crc32c", window=False) for b in rounds]
+    for b, t in zip(rounds, tickets):
+        assert t.result(60).tolist() == _oracle(b, "crc32c")
+    assert crc.launches > before
+    assert engine.stats["warmup_miss_jobs"] == 0
+
+
+def test_engine_fused_single_launch(engine):
+    rng = np.random.default_rng(41)
+    bufs_c = [rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+              for n in (900, 70000)]
+    bufs_l = [rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+              for n in (4096, 17)]
+    before = crc.launches
+    t1 = engine.submit(bufs_c, "crc32c", window=True)
+    t2 = engine.submit(bufs_l, "crc32", window=True)
+    assert t1.result(60).tolist() == _oracle(bufs_c, "crc32c")
+    assert t2.result(60).tolist() == _oracle(bufs_l, "crc32")
+    assert engine.stats["fused_launches"] == 1
+    assert crc.launches == before + 1
+
+
+def test_engine_round_one_launch_and_pinned_h2d_bytes(card):
+    """governor=False after the route is warm: a produce round is one
+    kernel launch, and the bytes copied to the card are the regions' own,
+    their alignment and the metadata."""
+    from librdkafka_tpu_torch import submit_batches
+    prov = GpuCodecProvider(min_batches=1, governor=False)
+    try:
+        assert prov.wait_warm(300)
+        parts = [[Record(value=b"%d" % i * 300) for i in range(40)]
+                 for _ in range(8)]
+        l0, h0 = crc.launches, crc.h2d_bytes
+        wire = submit_batches(prov, parts, None,
+                              1_700_000_000_000).result(60)
+        assert crc.launches == l0 + 1
+        lens = np.array([len(w) - 21 for w in wire])
+        tiles = crc.plan_tiles(np.cumsum(lens) - lens, lens)
+        real = int(lens.sum())
+        meta = 16 * len(tiles) + 8 * -(-len(lens) // 2)
+        assert crc.h2d_bytes - h0 == real + (-real % 16) + meta
+        assert wire == write_batches(native.CpuCodecProvider(), parts, None,
+                                     1_700_000_000_000)
+        lane = prov._engine._lanes[0]
+        assert lane.staging.pin and lane.staging.nbytes() > 0
+        assert prov._engine.stats["routed_cpu_jobs"] == 0
+    finally:
+        prov.close()
+
+
+def test_engine_close_with_tickets_in_flight(card):
+    from librdkafka_tpu_torch.ops.engine import AsyncOffloadEngine
+    eng = AsyncOffloadEngine(depth=2, min_batches=1, governor=False,
+                             cpu_fallback=_fallback)
+    bufs = [bytes([i]) * (1000 + 97 * i) for i in range(64)]
+    tickets = [eng.submit(bufs, "crc32c", window=False) for _ in range(16)]
+    eng.close()
+    for t in tickets:
+        assert t.done() and t.result(0).tolist() == _oracle(bufs, "crc32c")
+
+
+_TWO_THREADS = """
+import threading, numpy as np, torch
+from librdkafka_tpu_torch.ops import crc32c_torch as crc
+from librdkafka_tpu_torch.ops import cpu as native
+crc._kernel_lib()
+bufs = [bytes([i]) * (5000 + i) for i in range(32)]
+go = threading.Barrier(2)
+out = {}
+def first(k):
+    torch.cuda.set_device(0)
+    go.wait()
+    out[k] = crc.crc32c_many(bufs).tolist()
+ths = [threading.Thread(target=first, args=(k,)) for k in range(2)]
+[t.start() for t in ths]
+[t.join(120) for t in ths]
+want = [native.crc32c(b) for b in bufs]
+assert out[0] == want and out[1] == want, out
+assert crc.launches == 2
+print("ok")
+"""
+
+
+def test_first_launches_from_two_threads_fresh_process(card):
+    """A fresh process makes its first two launches from two threads at
+    once: the occupancy table the first launch fills is filled once."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", _TWO_THREADS], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr

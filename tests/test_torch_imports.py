@@ -39,3 +39,16 @@ def test_no_jax_or_reference_import(path):
 def test_banned_rule_keeps_the_port_name():
     assert _banned("librdkafka_tpu.ops") and _banned("jax.numpy")
     assert not _banned("librdkafka_tpu_torch.ops")
+
+
+@pytest.mark.parametrize("path", FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in FILES])
+def test_no_lookup_of_reference_modules(path):
+    """No module looks the JAX package up by name either (a copied
+    ``sys.modules.get("librdkafka_tpu...")`` would reach the reference's
+    caches)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = [n.value for n in ast.walk(tree)
+             if isinstance(n, ast.Constant) and isinstance(n.value, str)
+             and _banned(n.value.split()[0] if n.value.split() else "")]
+    assert not names, f"{path.name} names {names}"
