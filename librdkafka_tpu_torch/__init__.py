@@ -1,14 +1,17 @@
 """librdkafka_tpu_torch — the PyTorch / CUDA port of librdkafka_tpu.
 
 The port goes slice by slice beside the JAX package, which stays the
-reference it is held against.  This slice holds the layer that owns the
-device: the MessageSet v2 codec and its batched CRC offload.
+reference it is held against.  The slices so far hold the layer that owns
+the device: the MessageSet v2 codec, its batched CRC offload and its
+device lz4 compression.
 
 - ``utils``    — CRC32C/CRC32 tables and combines, varint, segmented buffers
 - ``protocol`` — protocol constants, MessageSet v2 and v0/v1 writer/reader
 - ``ops``      — native C++ CPU codec provider (ctypes), the GPU provider,
                  its async offload engine (``ops/engine.py``) and the
-                 hand-written CUDA CRC kernel (``csrc/crc_rows.cu``)
+                 hand-written CUDA kernels: CRC (``csrc/crc_rows.cu``) and
+                 LZ4 with a fused CRC epilogue (``csrc/lz4_rows.cu``)
+- ``models``   — the batched codec step (compress + CRC in one launch)
 - ``client``   — the broker's writer phase and fetch verify, ticketed
                  (``submit_batches`` / ``submit_read``) or resolved at once
                  (``write_batches`` / ``read_batches``)

@@ -97,14 +97,15 @@ class PendingBatches:
                                self.provider.crc32c_many, regions)
 
 
-def _submit(provider, name: str, sync_fn, *bufs):
-    """The provider's async seam ``name`` for ``bufs``, or a pre-resolved
-    ticket of ``sync_fn`` computed here (a raising computation re-raises
-    at resolve time, where the synchronous path raised it)."""
+def _submit(provider, name: str, sync_fn, *bufs, **seam_kw):
+    """The provider's async seam ``name`` for ``bufs`` (with ``seam_kw``),
+    or a pre-resolved ticket of ``sync_fn`` computed here (a raising
+    computation re-raises at resolve time, where the synchronous path
+    raised it)."""
     seam = getattr(provider, name, None)
     if seam is not None:
         try:
-            t = seam(*bufs)
+            t = seam(*bufs, **seam_kw)
         except Exception:       # e.g. an engine closed under us
             t = None
         if t is not None:
@@ -115,12 +116,15 @@ def _submit(provider, name: str, sync_fn, *bufs):
         return SyncTicket(exc=e)
 
 
-def submit_batches(provider, parts, codec: str | None,
-                   now_ms: int) -> PendingBatches:
+def submit_batches(provider, parts, codec: str | None, now_ms: int,
+                   qos=None) -> PendingBatches:
     """Start one MessageSet v2 batch per partition: ``parts`` holds one
     list of records (objects with ``key``, ``value``, ``headers``,
-    ``timestamp``) per partition.  Returns at once when the provider has
-    submit seams; ``.result()`` gives the wire batches in order."""
+    ``timestamp``) per partition.  ``qos`` is an optional ``(topic,
+    weight)`` pair per partition (broker.py:264-288), passed to a
+    provider that declares ``accepts_qos``.  Returns at once when the
+    provider has submit seams; ``.result()`` gives the wire batches in
+    order."""
     writers = [MsgsetWriterV2(codec=codec).build(msgs, now_ms)
                for msgs in parts]
     pend = PendingBatches(provider, writers)
@@ -128,8 +132,11 @@ def submit_batches(provider, parts, codec: str | None,
     if not idxs:
         pend._assemble({})
         return pend
+    kw = ({"qos": [qos[i] for i in idxs]}
+          if qos is not None and getattr(provider, "accepts_qos", False)
+          else {})
     t = _submit(provider, "compress_submit", provider.compress_many,
-                codec, [writers[i].records_bytes for i in idxs])
+                codec, [writers[i].records_bytes for i in idxs], **kw)
     pend.comp = (idxs, t)
     if isinstance(t, SyncTicket):
         pend.done()         # resolved: assemble and submit the CRCs now

@@ -60,6 +60,7 @@ h2d_bytes = 0
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CU_SRC = os.path.join(_PKG, "csrc", "crc_rows.cu")
+CU_HEADER = os.path.join(_PKG, "csrc", "crc_fold.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
                          "librdkafka_tpu_torch")
 SO = os.path.join(BUILD_DIR, "libcrc_rows.so")
@@ -314,23 +315,32 @@ def crc_segments_reference(flat: torch.Tensor, offsets: torch.Tensor,
 
 # -------------------------------------------------------- CUDA kernel --
 
-def _build() -> str:
-    """nvcc csrc/crc_rows.cu into build/librdkafka_tpu_torch/ if stale."""
-    global build_log
-    if (os.path.exists(SO)
-            and os.path.getmtime(SO) >= os.path.getmtime(CU_SRC)):
-        return SO
+def build_kernel(src: str, so: str) -> tuple[str, str]:
+    """nvcc one ``csrc/*.cu`` (with the shared ``crc_fold.cuh``) into
+    ``so`` under build/librdkafka_tpu_torch/ when it is missing or older
+    than its sources; returns (so, nvcc's output, "" when up to date)."""
+    newest = max(os.path.getmtime(src), os.path.getmtime(CU_HEADER))
+    if os.path.exists(so) and os.path.getmtime(so) >= newest:
+        return so, ""
     nvcc = shutil.which("nvcc") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{SO}.{os.getpid()}.tmp"
-    res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, CU_SRC],
+    tmp = f"{so}.{os.getpid()}.tmp"
+    res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, src],
                          capture_output=True, text=True)
-    build_log = res.stdout + res.stderr
+    log = res.stdout + res.stderr
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {CU_SRC}:\n{build_log}")
-    os.replace(tmp, SO)
-    return SO
+        raise RuntimeError(f"nvcc failed for {src}:\n{log}")
+    os.replace(tmp, so)
+    return so, log
+
+
+def _build() -> str:
+    """nvcc csrc/crc_rows.cu into build/librdkafka_tpu_torch/ if stale."""
+    global build_log
+    so, log = build_kernel(CU_SRC, SO)
+    build_log = log or build_log
+    return so
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -486,16 +496,33 @@ _CHAIN: dict = {}
 _chain_lock = threading.Lock()
 
 
-def launch(staged: tuple, stream=None) -> torch.Tensor:
-    """Launch the kernel on ``stream`` (default: torch's current stream);
-    returns ``out``.
+def serialized_launch(stream, fire, what: str) -> None:
+    """Enqueue one kernel on ``stream`` with ``fire()`` (returning a
+    cudaError_t), after the card's last launch of this package.
 
-    The grid is cooperative and its blocks wait on each other's tiles,
-    so two launches must never share the card: a launch on another
-    stream than the card's last one first waits, on the device, for
-    that one's end.  Launches go out one at a time under a lock, which
-    also makes each device's first launch (csrc/crc_rows.cu's occupancy
-    query) happen once."""
+    The CRC grid is cooperative and its blocks wait on each other's
+    tiles, so no other launch of the port may share the card with it: a
+    launch on another stream than the card's last one first waits, on
+    the device, for that one's end.  Launches go out one at a time under
+    a lock, which also makes each device's first launch (a kernel's
+    one-time attribute and occupancy setup) happen once."""
+    idx = stream.device.index
+    with _chain_lock, torch.cuda.device(stream.device):
+        last = _CHAIN.get(idx)
+        if last is not None and last[0] != stream:
+            stream.wait_event(last[1])
+        err = fire()
+        if err != 0:
+            raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
+        done = torch.cuda.Event()
+        done.record(stream)
+        _CHAIN[idx] = (stream, done)
+
+
+def launch(staged: tuple, stream=None) -> torch.Tensor:
+    """Launch the kernel on ``stream`` (default: torch's current stream),
+    serialized with the card's other launches (:func:`serialized_launch`);
+    returns ``out``."""
     global launches
     out, args, _alive = staged
     if len(out) == 0:
@@ -503,17 +530,10 @@ def launch(staged: tuple, stream=None) -> torch.Tensor:
     if stream is None:
         stream = torch.cuda.current_stream(out.device)
     lib = _kernel_lib()
-    with _chain_lock, torch.cuda.device(out.device):
-        last = _CHAIN.get(out.device.index)
-        if last is not None and last[0] != stream:
-            stream.wait_event(last[1])
-        err = lib.crc_segments_launch(*args, stream.cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"crc_segments kernel launch failed: "
-                               f"cudaError {err}")
-        done = torch.cuda.Event()
-        done.record(stream)
-        _CHAIN[out.device.index] = (stream, done)
+    serialized_launch(
+        stream, lambda: lib.crc_segments_launch(*args, stream.cuda_stream),
+        "crc_segments")
+    with _chain_lock:
         launches += 1
     return out
 

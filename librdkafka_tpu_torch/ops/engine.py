@@ -40,8 +40,21 @@ PyTorch version (``crc32c_torch.crc_segments`` on a CPU tensor): the
 tests' route.  A lane on a card launches the kernel or fails the
 tickets.
 
-Left out until their slices: the device compress route and its QoS
-models (``submit_compress``), and the whole-mesh sharded launches.
+The device compress route makes lz4 a launch kind the way CRC is one:
+``submit_compress`` packs a group's 64 KB blocks into a pinned slot of
+the lane's rings, launches the LZ4 kernel with its CRC epilogue
+(ops/lz4_torch.py, csrc/lz4_rows.cu) and reads back only the compressed
+bytes, the lengths and both CRCs of every block; the readback assembles
+one LZ4F frame per buffer as a :class:`packing.FrameBlob` carrying the
+CRC of each part, so the writer folds the v2 batch CRC with no CRC
+launch.  The governor keeps a parallel pair of compress cost models and
+a per-topic QoS layer (``qos`` weights): weighted fan-in admission,
+weight-ordered dispatch and, only while every lane is saturated, the
+shedding of flood topics to the CPU encoder.  Every CPU route of a
+compress job serves ``cpu_compress_fallback``, the deterministic native
+encoder, whose bytes equal the kernel's.
+
+Left out until its slice: the whole-mesh sharded launches.
 """
 from __future__ import annotations
 
@@ -59,6 +72,8 @@ from ..analysis.races import register_slots, shared, shared_dict
 from ..obs import metrics as _metrics
 from ..obs import trace as _trace
 from . import crc32c_torch as _crc
+from . import lz4_torch as _lz4
+from .packing import LZ4F_BLOCKSIZE, lz4f_frame
 
 class Ticket:
     """Handle for one submitted job; resolves to a uint32 ndarray of
@@ -117,22 +132,28 @@ class SyncTicket:
 
 class _Job:
     __slots__ = ("kind", "data", "lens", "poly", "ticket", "window", "fn",
-                 "args", "t_submit")
+                 "args", "t_submit", "topics", "weight")
 
     def __init__(self, kind, ticket, window=False, data=b"", lens=None,
                  poly=None, fn=None, args=()):
-        self.kind = kind            # "crc" | "compute" | "host"
-        self.data = data            # crc: the buffers joined (a snapshot)
-        self.lens = lens            # crc: (n,) int64 buffer lengths
+        self.kind = kind            # "crc" | "lz4" | "compute" | "host"
+        self.data = data            # crc: the buffers joined (a snapshot);
+                                    # lz4: the list of buffers (bytes)
+        self.lens = lens            # crc, lz4: (n,) int64 buffer lengths
         self.poly = poly
         self.ticket = ticket
         self.window = window        # may wait the fan-in window
         self.fn = fn
         self.args = args
         self.t_submit = 0.0         # submit() time (stage_latency)
+        self.topics: tuple = ()     # QoS: topics riding this job
+        self.weight = 1.0           # QoS: max weight of them
 
     def bufs(self) -> list:
-        """The job's buffers, as views of its joined snapshot."""
+        """The job's buffers, as views of its joined snapshot (an lz4
+        job keeps them as a list)."""
+        if isinstance(self.data, list):
+            return self.data
         mv = memoryview(self.data)
         ends = np.cumsum(self.lens).tolist()
         return [mv[e - n:e] for e, n in zip(ends, self.lens.tolist())]
@@ -201,12 +222,14 @@ class _Launch:
     """One in-flight launch awaiting readback."""
 
     __slots__ = ("kind", "jobs", "chunks", "ticket", "out_tree", "event",
-                 "t0", "bucket", "lane")
+                 "t0", "bucket", "lane", "raw")
 
     def __init__(self, kind):
         self.kind = kind
         self.jobs: list[_Job] = []
-        self.chunks: list = []                   # (slot, plan) per launch
+        self.chunks: list = []                   # (slot, plan) per launch;
+                                                 # lz4: (slot, plan, handle)
+        self.raw: list = []                      # lz4: the group's buffers
         self.ticket: Optional[Ticket] = None     # compute kind only
         self.out_tree = None
         self.event = None                        # compute: end of fn's work
@@ -222,7 +245,7 @@ class _Lane:
     engine ``depth``, and per-device counters for devices_snapshot."""
 
     __slots__ = ("dev_id", "device", "bufs", "staging", "inflight",
-                 "launches", "blocks", "jobs", "launch_avg")
+                 "launches", "blocks", "jobs", "launch_avg", "rb_stream")
 
     def __init__(self, dev_id: int, device: torch.device, copies: int,
                  launch_avg):
@@ -235,6 +258,10 @@ class _Lane:
         self.blocks = 0
         self.jobs = 0
         self.launch_avg = launch_avg    # per-device stage_latency window
+        # a card's second stream, for an lz4 launch's bulk readback: the
+        # lane's own stream may already hold the next launch
+        self.rb_stream = (torch.cuda.Stream(device)
+                          if device.type == "cuda" else None)
 
 
 class _Governor:
@@ -250,10 +277,18 @@ class _Governor:
 
     EWMA_ALPHA = 0.25
     EXPLORE_EVERY = 16
+    #: per-topic byte-pressure decay applied at each submission of that
+    #: topic (the QoS feedback signal)
+    QOS_DECAY = 0.75
+    #: a topic is shed-eligible while saturated once its decayed byte
+    #: share exceeds this multiple of its weight share
+    QOS_SHED_RATIO = 1.5
 
     __slots__ = ("enabled", "fanin_cap_s", "interarrival_s",
                  "_last_submit", "cpu_ns_per_byte", "dev_launch_s",
-                 "_since_explore", "_glock")
+                 "_since_explore", "_glock", "cpu_comp_ns_per_byte",
+                 "dev_comp_launch_s", "_since_explore_comp",
+                 "qos_weights", "qos_bytes", "qos_routed", "qos_shed")
 
     def __init__(self, enabled: bool, fanin_cap_s: float):
         self.enabled = bool(enabled)
@@ -268,6 +303,17 @@ class _Governor:
         # (lane id, slot bucket) -> launch-time EWMA seconds
         self.dev_launch_s: dict[tuple[int, int], float] = {}
         self._since_explore = 0
+        # compress cost models: the CRC models' shapes, never sharing an
+        # estimate with them (an lz4 launch is far heavier than a CRC one)
+        self.cpu_comp_ns_per_byte: Optional[float] = None
+        self.dev_comp_launch_s: dict[tuple[int, int], float] = {}
+        self._since_explore_comp = 0
+        # per-topic QoS state: weights, decayed byte pressure (the
+        # feedback signal), routed / shed counters
+        self.qos_weights: dict[str, float] = {}
+        self.qos_bytes: dict[str, float] = {}
+        self.qos_routed: dict[str, int] = {}
+        self.qos_shed: dict[str, int] = {}
 
     def _ewma(self, old: Optional[float], v: float) -> float:
         return v if old is None else old + self.EWMA_ALPHA * (v - old)
@@ -369,11 +415,112 @@ class _Governor:
         return {str(b): round(s * 1e3, 3)
                 for (d, b), s in items if d == dev}
 
+    # ---- compress route ----
+    def note_topics(self, entries) -> None:
+        """Submitter side: fold one compress submission into the QoS
+        models; ``entries`` is (topic, weight, nbytes) per topic."""
+        with self._glock:
+            for topic, w, nbytes in entries:
+                self.qos_weights[topic] = float(w)
+                self.qos_bytes[topic] = (
+                    self.qos_bytes.get(topic, 0.0) * self.QOS_DECAY
+                    + float(nbytes))
+
+    def note_device_compress(self, bucket: Optional[int], dt: float,
+                             dev: int = 0) -> None:
+        if bucket is not None:
+            key = (dev, bucket)
+            with self._glock:
+                self.dev_comp_launch_s[key] = self._ewma(
+                    self.dev_comp_launch_s.get(key), dt)
+
+    def note_cpu_compress(self, nbytes: int, dt: float) -> None:
+        if nbytes > 0:
+            with self._glock:
+                self.cpu_comp_ns_per_byte = self._ewma(
+                    self.cpu_comp_ns_per_byte, dt * 1e9 / nbytes)
+
+    def lane_compress_s(self, dev: int, bucket: int) -> Optional[float]:
+        with self._glock:
+            return self.dev_comp_launch_s.get((dev, bucket))
+
+    def route_compress(self, bucket: int, nbytes: int) -> tuple[str, bool]:
+        """('device'|'cpu', explored) for an at-quorum compress group: the
+        :meth:`route` shape on the compress cost models."""
+        with self._glock:
+            best = None
+            for (d, b), s in self.dev_comp_launch_s.items():
+                if b == bucket and (best is None or s < best):
+                    best = s
+            cpu = self.cpu_comp_ns_per_byte
+            if best is None or cpu is None:
+                return "device", False
+            pick = "device" if best <= nbytes * cpu / 1e9 else "cpu"
+            self._since_explore_comp += 1
+            if self._since_explore_comp >= self.EXPLORE_EVERY:
+                self._since_explore_comp = 0
+                return ("cpu" if pick == "device" else "device"), True
+            return pick, False
+
+    def shed_topics(self, saturated: bool) -> set:
+        """Topics whose decayed byte share exceeds QOS_SHED_RATIO x the
+        share their weight entitles them to — only while every lane is
+        saturated, and never the whole topic set."""
+        if not (self.enabled and saturated):
+            return set()
+        with self._glock:
+            if len(self.qos_weights) < 2:
+                return set()
+            tot_w = sum(self.qos_weights.values()) or 1.0
+            tot_b = sum(self.qos_bytes.values())
+            if tot_b <= 0:
+                return set()
+            out = {t for t, w in self.qos_weights.items()
+                   if (self.qos_bytes.get(t, 0.0) / tot_b
+                       > self.QOS_SHED_RATIO * (w / tot_w))}
+            return out if len(out) < len(self.qos_weights) else set()
+
+    def note_qos(self, topics, *, shed: bool) -> None:
+        """Dispatch-thread side: count a job's topics as device-routed or
+        shed."""
+        if topics:
+            with self._glock:
+                tgt = self.qos_shed if shed else self.qos_routed
+                for t in topics:
+                    tgt[t] = tgt.get(t, 0) + 1
+
+    def compress_models(self) -> dict:
+        """The compress cost models, in the :meth:`snapshot` shape."""
+        with self._glock:
+            dev = dict(self.dev_comp_launch_s)
+            cpu = self.cpu_comp_ns_per_byte
+        best: dict[int, float] = {}
+        for (d, b), s in dev.items():
+            if b not in best or s < best[b]:
+                best[b] = s
+        return {"cpu_ns_per_byte": (None if cpu is None
+                                    else round(cpu, 3)),
+                "dev_launch_ms": {str(b): round(s * 1e3, 3)
+                                  for b, s in sorted(best.items())}}
+
+    def qos_snapshot(self) -> dict:
+        """Per-topic {weight, routed, shed}."""
+        with self._glock:
+            topics = (set(self.qos_weights) | set(self.qos_routed)
+                      | set(self.qos_shed))
+            return {t: {"weight": self.qos_weights.get(t, 1.0),
+                        "routed": self.qos_routed.get(t, 0),
+                        "shed": self.qos_shed.get(t, 0)}
+                    for t in sorted(topics)}
+
 
 # the governor's online models are cross-thread by design, all
 # serialized under engine.governor
 register_slots(_Governor, "interarrival_s", "_last_submit",
                "cpu_ns_per_byte", "dev_launch_s", "_since_explore",
+               "cpu_comp_ns_per_byte", "dev_comp_launch_s",
+               "_since_explore_comp", "qos_weights", "qos_bytes",
+               "qos_routed", "qos_shed",
                prefix="engine.governor")
 
 
@@ -434,7 +581,8 @@ class AsyncOffloadEngine:
                  cpu_fallback: Optional[Callable] = None,
                  name: str = "gpu-engine",
                  governor: bool = True, warmup: bool = False,
-                 devices=None):
+                 devices=None,
+                 cpu_compress_fallback: Optional[Callable] = None):
         # depth: launches kept in flight PER LANE before that lane's
         # oldest is read back
         self.depth = max(1, int(depth))
@@ -442,6 +590,11 @@ class AsyncOffloadEngine:
         self.min_batches = max(1, int(min_batches))
         # cpu_fallback(bufs, poly) -> list[int]; serves below-quorum jobs
         self.cpu_fallback = cpu_fallback
+        # cpu_compress_fallback(bufs) -> list[bytes]: the deterministic lz4
+        # frame encoder (bytes equal to the kernel's) serving below-quorum,
+        # unwarmed, CPU-routed and shed compress jobs
+        self.cpu_compress_fallback = cpu_compress_fallback
+        self._name = name
         # the adaptive policy layer; fanin_window_s is its CAP
         self.governor = _Governor(governor, self.fanin_window_s)
         # warmup=True: lanes warm on the background thread and jobs for
@@ -460,11 +613,14 @@ class AsyncOffloadEngine:
         self._queue: deque[_Job] = deque()
         self._closed = False
         # lanes the dispatch thread missed on: the warmup thread warms
-        # these first
-        self._warm_requests: deque[int] = deque()
+        # these first; an item is a lane id (the CRC kernel) or
+        # ("lz4", lane id) (the compress kernel, warmed on demand only)
+        self._warm_requests: deque = deque()
         # lane id -> the exception its warmup raised (a card that cannot
-        # build or launch the kernel fails its tickets, never hides)
+        # build or launch the kernel fails its tickets, never hides); the
+        # compress kernel's failures apart
         self._warm_failed: dict[int, BaseException] = {}
+        self._lz4_failed: dict[int, BaseException] = {}
         # single-writer (the dispatch thread; the warmup thread's bump
         # rides the engine lock) with snapshot readers
         self.stats = shared_dict("engine.stats", relaxed=True)
@@ -475,6 +631,18 @@ class AsyncOffloadEngine:
              "fanin_skips": 0, "warmup_miss_jobs": 0,
              "warmup_compiled": 0, "routed_cpu_jobs": 0,
              "explore_routes": 0, "fused_launches": 0})
+        # the device compress route's counters, kept apart from the CRC
+        # stats (same discipline: dispatch-thread writes, snapshot reads)
+        self.compress_stats = shared_dict("engine.compress_stats",
+                                          relaxed=True)
+        self.compress_stats.update(
+            {"launches": 0, "blocks": 0, "jobs": 0, "cpu_jobs": 0,
+             "warmup_miss_jobs": 0, "routed_cpu_jobs": 0,
+             "explore_routes": 0, "fused_crc": 0, "shed_jobs": 0,
+             "bytes_in": 0, "bytes_out": 0})
+        # per-bucket route split {str(bucket): {"device": n, "cpu": n}}
+        self._comp_routed = shared_dict("engine.compress_routed",
+                                        relaxed=True)
         # per-stage latency windows (codec_engine.stage_latency):
         # submit->launch wait, launch->readback, the host-side reap
         from ..client.stats import Avg
@@ -521,7 +689,46 @@ class AsyncOffloadEngine:
             self._cond.notify()
         return t
 
-    def submit_compute(self, fn, *args, host: bool = False) -> Ticket:
+    def submit_compress(self, bufs: list, *, qos=None,
+                        window: bool = True) -> Ticket:
+        """Queue a device lz4 compress job; resolves to one LZ4F frame per
+        buffer: a :class:`packing.FrameBlob` (bytes plus the crc32c of
+        each frame part, from the kernel's CRC epilogue) on the device
+        route, plain ``bytes`` when the deterministic CPU encoder served
+        it; the same bytes either way.  ``qos`` is an optional (topic,
+        weight) pair per buffer: the max weight shortens the job's fan-in
+        wait and orders it ahead of lighter work, and the topics' byte
+        pressure feeds the governor's shed decision."""
+        t = Ticket()
+        data = [bytes(b) for b in bufs]
+        lens = np.fromiter((len(b) for b in data), dtype=np.int64,
+                           count=len(data))
+        job = _Job("lz4", t, window, data, lens)
+        job.t_submit = time.perf_counter()
+        if qos:
+            per: dict[str, list] = {}
+            wmax = 1.0
+            for (topic, w), b in zip(qos, data):
+                e = per.get(topic)
+                if e is None:
+                    per[topic] = [float(w), len(b)]
+                else:
+                    e[1] += len(b)
+                wmax = max(wmax, float(w))
+            job.topics = tuple(sorted(per))
+            job.weight = wmax
+            self.governor.note_topics(
+                [(topic, w, nb) for topic, (w, nb) in per.items()])
+        with self._cond:
+            if self._closed:
+                raise RuntimeError("engine closed")
+            self.governor.note_submit(time.monotonic())
+            self._queue.append(job)
+            self._cond.notify()
+        return t
+
+    def submit_compute(self, fn, *args, host: bool = False,
+                       weight: float = 1.0) -> Ticket:
         """Generic pipelined dispatch: run ``fn(*args)`` on the dispatch
         thread.  ``host=False`` runs it on lane 0's stream and treats its
         return value as a tree of tensors, with the same in-flight depth
@@ -531,9 +738,13 @@ class AsyncOffloadEngine:
         resolves the ticket with its raw return value.  A host job
         overlaps any device launch already in flight: the card executes
         while the dispatch thread runs the (GIL-releasing) native
-        call."""
+        call.  ``weight`` is the QoS priority (the max topic weight
+        riding the job): the dispatch loop stable-sorts popped jobs by
+        descending weight, so a latency topic's host compress never
+        queues behind a bulk flood's."""
         t = Ticket()
         job = _Job("host" if host else "compute", t, fn=fn, args=args)
+        job.weight = float(weight)
         job.t_submit = time.perf_counter()
         with self._cond:
             if self._closed:
@@ -549,7 +760,9 @@ class AsyncOffloadEngine:
         could not reach (a wedged or crashed dispatch thread, or a join
         timeout) is FAILED rather than left to hang its waiter in
         Ticket.result().  The staging rings are released once the
-        dispatch thread has exited."""
+        dispatch thread has exited, and the compress kernel's warm
+        registry with them (lz4_torch.release_device_kernels: no warm
+        state outlives the engine)."""
         with self._cond:
             self._closed = True
             self._cond.notify()
@@ -559,6 +772,7 @@ class AsyncOffloadEngine:
             # progress finishes (it cannot be cancelled) and the thread
             # exits — deterministic drain, no leak
             self._warmup_thread.join(timeout)
+        _lz4.release_device_kernels()
         if self._thread.is_alive():
             # join timed out: the dispatch thread is wedged.  Fail every
             # job still visible so waiters unblock; first-resolution-wins
@@ -586,6 +800,35 @@ class AsyncOffloadEngine:
                 return _crc.kernel_ready(dev)
             time.sleep(0.02)
         return True
+
+    def lz4_warm_wait(self, timeout: float = 120.0, device: int = 0) -> bool:
+        """Block until lane ``device``'s compress kernel is warm, asking
+        the warmup thread for it (warmed here when the engine has no
+        warmup); False on timeout, or at once if its warmup failed."""
+        dev = self._devices[device]
+        if not _lz4.kernel_ready(dev):
+            if not self.warmup_enabled:
+                _lz4.warm_kernel(dev)
+                return True
+            self._request_warm(("lz4", device))
+        deadline = time.monotonic() + timeout
+        while not _lz4.kernel_ready(dev):
+            if (time.monotonic() >= deadline or self._is_closed()
+                    or device in self._lz4_failed):
+                return _lz4.kernel_ready(dev)
+            time.sleep(0.02)
+        return True
+
+    def compress_snapshot(self) -> dict:
+        """The device compress route's gauges: route counters, bytes in
+        and out, the per-bucket device/cpu split, the compress cost
+        models and the per-topic QoS table."""
+        snap = dict(self.compress_stats)
+        snap["routed"] = {b: dict(v)
+                          for b, v in sorted(self._comp_routed.items())}
+        snap["model"] = self.governor.compress_models()
+        snap["qos"] = self.governor.qos_snapshot()
+        return snap
 
     def _is_closed(self) -> bool:
         """Locked read of the closed flag for the warmup thread and test
@@ -664,12 +907,21 @@ class AsyncOffloadEngine:
         return best
 
     # ----------------------------------------------------- warmup thread --
-    def _request_warm(self, dev_id: int) -> None:
-        """Dispatch-thread side: a launch missed this lane — move it to
-        the front of the warmup queue."""
+    def _request_warm(self, item) -> None:
+        """A launch missed this lane (``item``: a lane id, or ("lz4", lane
+        id)) — move it to the front of the warmup queue, starting the
+        warmup thread again if its sweep has ended (compress kernels warm
+        on demand only)."""
         with self._lock:
-            if dev_id not in self._warm_requests:
-                self._warm_requests.append(dev_id)
+            if self._closed:
+                return
+            if item not in self._warm_requests:
+                self._warm_requests.append(item)
+            if self.warmup_enabled and not self._warmup_thread.is_alive():
+                self._warmup_thread = threading.Thread(
+                    target=self._warmup_main, daemon=True,
+                    name=self._name + "-warmup")
+                self._warmup_thread.start()
 
     def _warmup_main(self):
         """Low-priority sweep warming every lane in order (lane 0 first):
@@ -690,6 +942,9 @@ class AsyncOffloadEngine:
                     return
                 item = i
                 i += 1
+            if isinstance(item, tuple):
+                self._warm_lz4(lanes[item[1]])
+                continue
             lane = lanes[item]
             if _crc.kernel_ready(lane.device) or item in self._warm_failed:
                 continue
@@ -704,6 +959,20 @@ class AsyncOffloadEngine:
             # the dispatch thread
             with self._lock:
                 self.stats["warmup_compiled"] += 1
+
+    def _warm_lz4(self, lane: _Lane) -> None:
+        """The warmup thread's compress item: build, constants and one
+        checked launch (lz4_torch.warm_kernel); a failure closes the
+        lane's compress route with that error."""
+        if _lz4.kernel_ready(lane.device) or lane.dev_id in self._lz4_failed:
+            return
+        try:
+            _lz4.warm_kernel(lane.device)
+        except Exception as e:
+            self._lz4_failed[lane.dev_id] = e
+            return
+        with self._lock:
+            self.stats["warmup_compiled"] += 1
 
     # ---------------------------------------------------- dispatch thread --
     def _main(self):
@@ -720,7 +989,7 @@ class AsyncOffloadEngine:
                 j.ticket._fail(exc)
             for lane in self._lanes:
                 for rec in lane.inflight:
-                    if rec.kind == "crc":
+                    if rec.kind in ("crc", "lz4"):
                         for j in rec.jobs:
                             j.ticket._fail(exc)
                     elif rec.ticket is not None:
@@ -742,6 +1011,9 @@ class AsyncOffloadEngine:
                 jobs = self._pop_jobs_locked()
             if jobs:
                 jobs = self._fanin(jobs)
+                # QoS priority: heavier (latency) jobs launch first; the
+                # sort is stable, so weight 1.0 keeps submission order
+                jobs.sort(key=lambda j: -j.weight)
                 for group in self._group(jobs):
                     rec = self._launch(group)
                     if rec is not None:
@@ -776,10 +1048,15 @@ class AsyncOffloadEngine:
         if self.fanin_window_s <= 0:
             return jobs
         nbufs = sum(len(j.lens) for j in jobs
-                    if j.kind == "crc" and j.window)
+                    if j.kind in ("crc", "lz4") and j.window)
         if nbufs == 0 or nbufs >= self.min_batches:
             return jobs
-        window = self.governor.fanin_window(self.min_batches - nbufs)
+        # weighted admission: the heaviest topic riding this window
+        # divides the wait
+        wmax = max((j.weight for j in jobs
+                    if j.kind in ("crc", "lz4") and j.window), default=1.0)
+        window = (self.governor.fanin_window(self.min_batches - nbufs)
+                  / max(1.0, wmax))
         if window <= 0:
             self.stats["fanin_skips"] += 1
             self._fanin_last = nbufs
@@ -799,7 +1076,7 @@ class AsyncOffloadEngine:
                 more = self._pop_jobs_locked()
                 jobs.extend(more)
                 nbufs += sum(len(j.lens) for j in more
-                             if j.kind == "crc" and j.window)
+                             if j.kind in ("crc", "lz4") and j.window)
         self._fanin_last = nbufs
         if t0:
             _trace.complete("engine", "fanin_wait", t0,
@@ -811,12 +1088,17 @@ class AsyncOffloadEngine:
         """Launch groups: CRC jobs merge per polynomial — or across BOTH
         polynomials into one fused launch when the governor is on
         (per-segment ``sel``), so a mixed v2/legacy fetch response pays
-        one launch instead of two.  Compute/host jobs launch
-        individually."""
+        one launch instead of two.  lz4 compress jobs merge into one group
+        the same way.  Compute/host jobs launch individually."""
         by_poly: dict[str, list[_Job]] = {}
+        lz4_group: list[_Job] = []
         order = []
         for j in jobs:
-            if j.kind != "crc":
+            if j.kind == "lz4":
+                if not lz4_group:
+                    order.append(lz4_group)
+                lz4_group.append(j)
+            elif j.kind != "crc":
                 order.append([j])
             else:
                 if j.poly not in by_poly:
@@ -858,6 +1140,8 @@ class AsyncOffloadEngine:
                 return None
             if group[0].kind == "compute":
                 return self._launch_compute(group[0])
+            if group[0].kind == "lz4":
+                return self._launch_lz4(group)
             return self._launch_crc(group)
         except Exception as e:
             for j in group:
@@ -901,6 +1185,37 @@ class AsyncOffloadEngine:
                             {"route": "cpu", "reason": counter,
                              "jobs": len(group), "bytes": nbytes})
 
+    def _serve_cpu_compress(self, group: list[_Job], counter: str, *,
+                            shed: bool = False) -> None:
+        """Serve a compress group on the deterministic CPU encoder (the
+        kernel's bytes by construction), timing it into the governor's
+        compress cost model."""
+        self.compress_stats[counter] += len(group)
+        t0 = time.perf_counter()
+        tr0 = _trace.now() if _trace.enabled else 0
+        nbytes = 0
+        for j in group:
+            try:
+                j.ticket._complete(self.cpu_compress_fallback(j.bufs()))
+                nbytes += int(j.lens.sum())
+            except Exception as e:
+                j.ticket._fail(e)
+            self.governor.note_qos(j.topics, shed=shed)
+        self.governor.note_cpu_compress(nbytes, time.perf_counter() - t0)
+        if tr0:
+            _trace.complete("engine", "cpu_serve", tr0,
+                            {"route": "cpu", "reason": counter,
+                             "kind": "compress", "jobs": len(group),
+                             "bytes": nbytes})
+
+    def _note_comp_route(self, bucket: int, side: str) -> None:
+        """Per-bucket device/cpu route split (dispatch-thread writes)."""
+        d = self._comp_routed.get(str(bucket))
+        if d is None:
+            d = {"device": 0, "cpu": 0}
+            self._comp_routed[str(bucket)] = d
+        d[side] += 1
+
     def _pick_lane(self, lanes: list, bucket: Optional[int]) -> _Lane:
         """Least-loaded whole-group lane pick: fewest in-flight launches
         first, then the governor's per-lane launch-time EWMA for this
@@ -916,7 +1231,8 @@ class AsyncOffloadEngine:
     def _chunks(lens: np.ndarray) -> list[tuple[int, int]]:
         """Buffer ranges [start, stop) of a group's launches: at most
         LAUNCH_BYTES of buffers each, a larger buffer alone (the
-        synchronous route's split, crc32c_torch._crc_many)."""
+        synchronous route's split, crc32c_torch._crc_many).  The compress
+        route cuts the same way, so a buffer's blocks never split."""
         ends = np.cumsum(lens)
         out, start = [], 0
         while start < len(lens):
@@ -1043,6 +1359,132 @@ class AsyncOffloadEngine:
                 lane.staging.give_back([s for s, _ in rec.chunks])
                 raise
 
+    def _launch_lz4(self, group: list[_Job]) -> Optional[_Launch]:
+        """The device compress route: a group's buffers cut into 64 KB
+        blocks, packed into pinned slots of a lane's rings, one launch of
+        the LZ4 kernel with its CRC epilogue per chunk, governed by the
+        compress cost models.  Every CPU route (below quorum, lane not
+        warm, CPU-routed, QoS-shed) serves the deterministic CPU encoder:
+        the same frames on every route."""
+        self.compress_stats["jobs"] += len(group)
+        can_cpu = self.cpu_compress_fallback is not None
+
+        # QoS shed: while every lane is saturated, flood topics (a byte
+        # share beyond what their weight entitles them to) divert to the
+        # CPU encoder so the card stays free for the rest — never the
+        # whole group
+        if can_cpu and len(group) > 1 and self._lanes_ready:
+            saturated = (self._inflight_total()
+                         >= self.depth * len(self._lanes))
+            shed = self.governor.shed_topics(saturated)
+            if shed:
+                shed_jobs = [j for j in group
+                             if j.topics and set(j.topics) <= shed]
+                if shed_jobs and len(shed_jobs) < len(group):
+                    keep = set(map(id, shed_jobs))
+                    group = [j for j in group if id(j) not in keep]
+                    self._serve_cpu_compress(shed_jobs, "shed_jobs",
+                                             shed=True)
+
+        lens = np.concatenate([j.lens for j in group])
+        nblocks = int((-(-lens // LZ4F_BLOCKSIZE)).sum())
+        if nblocks < self.min_batches and can_cpu:
+            # below the launch quorum even after fan-in: the hard floor
+            self._serve_cpu_compress(group, "cpu_jobs")
+            return None
+        if nblocks == 0:
+            # every buffer empty (and no CPU encoder): header + EndMark
+            # frames need no device
+            for j in group:
+                j.ticket._complete([lz4f_frame([]) for _ in j.lens])
+            return None
+        # 64 MiB of blocks a launch (crc32c_torch.LAUNCH_BYTES).  The JAX
+        # engine caps a launch at 64 rows (LZ4_MAX_B) so that it never
+        # holds a TPU lane long; on an H100, 64 rows would be 64 CTAs on
+        # 132 SMs.  64 MiB is one produce round of the main path (64
+        # partitions x ~1 MB, 1,024 blocks): one launch, about eight CTA
+        # waves, staged in one 64 MiB pinned slot.
+        chunks = self._chunks(lens)
+        bucket = _crc.slot_bucket(int(lens[slice(*chunks[0])].sum()))
+
+        lanes = self._get_lanes()
+        ok = lanes
+        if self.warmup_enabled:
+            # warmup gate, per lane (the CRC gate's shape): with no lane's
+            # compress kernel warm, the CPU encoder serves and the picked
+            # lane's warm request jumps the queue; a lane whose warmup
+            # failed never opens, and with every lane failed the group
+            # fails with that error
+            ok = [ln for ln in lanes if _lz4.kernel_ready(ln.device)]
+            if not ok:
+                failed = [self._lz4_failed.get(ln.dev_id) for ln in lanes]
+                if all(failed):
+                    raise failed[0]
+                want = self._pick_lane(
+                    [ln for ln, f in zip(lanes, failed) if f is None], None)
+                self._request_warm(("lz4", want.dev_id))
+                if can_cpu:
+                    self._serve_cpu_compress(group, "warmup_miss_jobs")
+                    return None
+                ok = [want]
+
+        explored = False
+        if self.governor.enabled and can_cpu:
+            route, explored = self.governor.route_compress(
+                bucket, int(lens.sum()))
+            if explored:
+                self.compress_stats["explore_routes"] += 1
+            if route == "cpu":
+                self._note_comp_route(bucket, "cpu")
+                self._serve_cpu_compress(group, "routed_cpu_jobs")
+                return None
+
+        lane = min(ok, key=lambda ln: (
+            len(ln.inflight),
+            self.governor.lane_compress_s(ln.dev_id, bucket) or 0.0,
+            ln.launches))
+        # with no warmup thread the kernel is built and checked here, on
+        # its first use (a failure fails the group)
+        _lz4.warm_kernel(lane.device)
+        rec = _Launch("lz4")
+        rec.jobs = group
+        rec.lane = lane
+        rec.bucket = bucket
+        rec.raw = [b for j in group for b in j.bufs()]
+        t_launch = time.perf_counter()
+        for j in group:
+            if j.t_submit:
+                self.stage_submit_wait.add((t_launch - j.t_submit) * 1e6)
+        rec.t0 = t_launch
+        tr0 = _trace.now() if _trace.enabled else 0
+        if _metrics.enabled:
+            _metrics.counter("engine.launches").inc()
+        self.compress_stats["launches"] += 1
+        self.compress_stats["blocks"] += nblocks
+        self.compress_stats["bytes_in"] += int(lens.sum())
+        self._note_comp_route(bucket, "device")
+        lane.launches += 1
+        lane.blocks += nblocks
+        lane.jobs += len(group)
+        for a, b in chunks:
+            plan = _lz4.plan_lz4(lens[a:b])
+            slot = lane.staging.take(plan.nbytes)
+            try:
+                _lz4.fill_lz4(slot, plan, rec.raw[a:b])
+                handle = _lz4.launch_lz4(slot, plan, lane.bufs)
+            except BaseException:
+                lane.staging.give_back([slot] + [c[0] for c in rec.chunks])
+                raise
+            rec.chunks.append((slot, plan, handle))
+        for j in group:
+            self.governor.note_qos(j.topics, shed=False)
+        if tr0:
+            _trace.complete("engine", "compress_launch", tr0,
+                            {"route": "device", "explored": explored,
+                             "bucket": bucket, "blocks": nblocks,
+                             "jobs": len(group), "device": lane.dev_id})
+        return rec
+
     # ------------------------------------------------------------ readback --
     def _readback(self, rec: _Launch) -> None:
         if _lockdep.enabled:
@@ -1059,6 +1501,9 @@ class AsyncOffloadEngine:
                     _trace.complete("engine", "readback", t0,
                                     {"kind": "compute"})
                 return
+            if rec.kind == "lz4":
+                self._readback_lz4(rec)
+                return
             self._readback_crc(rec)
         except Exception as e:
             if rec.kind == "compute":
@@ -1066,6 +1511,52 @@ class AsyncOffloadEngine:
             else:
                 for j in rec.jobs:
                     j.ticket._fail(e)
+
+    def _readback_lz4(self, rec: _Launch) -> None:
+        """Read a compress launch back and assemble the LZ4F frames: one
+        launch gave the compressed blocks AND the CRCs of both candidate
+        bodies of each block, so the store-raw choice (compressed iff
+        strictly smaller) picks its CRC for free and the v2 batch CRC is
+        a host-side combine away (FrameBlob.region_crc)."""
+        tr0 = _trace.now() if _trace.enabled else 0
+        try:
+            parts = [_lz4.read_lz4(slot, plan, handle, rec.lane.rb_stream)
+                     for slot, plan, handle in rec.chunks]
+        finally:
+            rec.lane.staging.give_back([c[0] for c in rec.chunks])
+        if rec.t0 is not None:
+            dt = time.perf_counter() - rec.t0
+            self.governor.note_device_compress(rec.bucket, dt,
+                                               rec.lane.dev_id)
+            rec.lane.launch_avg.add(dt * 1e6)
+            self.stage_launch.add(dt * 1e6)
+        t_reap = time.perf_counter()
+        self.compress_stats["fused_crc"] += 1
+        frames, nblocks = [], 0
+        for (_, plan, _), (packed, offs, olen, cc, cr) in zip(rec.chunks,
+                                                            parts):
+            mv = memoryview(packed)
+            for first, nb in plan.spans:
+                buf = memoryview(rec.raw[len(frames)])
+                bodies = []
+                for k in range(nb):
+                    i = first + k
+                    o = int(offs[i])
+                    raw = buf[k * LZ4F_BLOCKSIZE:(k + 1) * LZ4F_BLOCKSIZE]
+                    bodies.append((mv[o:o + int(olen[i])].tobytes(),
+                                   int(cc[i]), raw, int(cr[i])))
+                frames.append(lz4f_frame(bodies))
+            nblocks += plan.B
+        self.compress_stats["bytes_out"] += sum(len(f) for f in frames)
+        pos = 0
+        for j in rec.jobs:
+            j.ticket._complete(frames[pos:pos + len(j.lens)])
+            pos += len(j.lens)
+        if tr0:
+            _trace.complete("engine", "fused_crc", tr0,
+                            {"bucket": rec.bucket, "frames": len(frames),
+                             "blocks": nblocks, "device": rec.lane.dev_id})
+        self.stage_reap.add((time.perf_counter() - t_reap) * 1e6)
 
     def _readback_crc(self, rec: _Launch) -> None:
         tr0 = _trace.now() if _trace.enabled else 0

@@ -1,7 +1,7 @@
-"""GPU codec provider — the port of librdkafka_tpu/ops/tpu.py's CRC routes.
+"""GPU codec provider — the port of librdkafka_tpu/ops/tpu.py.
 
-The same MsgsetCodecProvider interface as the CPU provider; only the
-batched checksums leave the host:
+The same MsgsetCodecProvider interface as the CPU provider; the batched
+checksums and, when asked for, the lz4 compression leave the host:
 
   * ``crc32c_many`` / ``crc32_many``: at and above ``min_batches``
     buffers and with the transport gate open, through the async offload
@@ -14,11 +14,21 @@ batched checksums leave the host:
     caller frames round k+1 while round k is checksummed; None when the
     engine is off or the gate closed (the caller then computes
     synchronously).
-  * ``compress_submit`` / ``decompress_submit``: engine host jobs running
-    the native CPU codecs on the dispatch thread, overlapping the
-    in-flight CRC launches.  lz4 stays on the native CPU path, exactly
-    as tpu.py:284-304 routes it without ``tpu.lz4.force`` (the device
-    compress route is a later slice).
+  * ``compress_submit``: with ``compress_device`` (``tpu.compress.device``)
+    and lz4, the engine's device compress route (``submit_compress``):
+    one launch of the LZ4 kernel with its CRC epilogue
+    (ops/lz4_torch.py, csrc/lz4_rows.cu) per round, resolving to LZ4F
+    frames that carry the CRC of each part, so the writer folds the v2
+    batch CRC with no CRC launch.  Its bytes are the deterministic native
+    encoder's (``cpu.lz4f_compress_many(deterministic=True)``), not the
+    default fast parse's.  Otherwise an engine host job running the
+    native codec on the dispatch thread, in QoS weight order.
+  * ``compress_many`` with ``lz4_force`` (``tpu.lz4.force``): the
+    synchronous device route, every 64 KB block of every buffer in one
+    launch (``lz4_torch.lz4_block_compress_many``), frames assembled on
+    the host; same bytes as the deterministic native encoder.
+  * ``decompress_submit``: engine host jobs running the native CPU
+    decoders on the dispatch thread, overlapping the in-flight launches.
 
 The transport gate (``min_transport_mb_s``) measures a pinned
 host-to-device round trip in a SUBPROCESS, so a client the gate routes
@@ -34,8 +44,10 @@ import torch
 
 from . import cpu as _cpu
 from . import crc32c_torch
+from . import lz4_torch
 from ..analysis.locks import new_lock
 from ..analysis.races import shared
+from .packing import LZ4F_BLOCKSIZE, lz4f_frame
 
 #: the probe body, run OUT OF PROCESS (see _probe_transport): a pinned
 #: host-to-device copy and its way back, timed after one warm round trip;
@@ -77,10 +89,15 @@ class GpuCodecProvider:
     ``device="cpu"`` runs the kernel's plain PyTorch version on the host
     (the tests' route).  The defaults are the JAX provider's:
     ``pipeline_depth=2`` (the engine; 0 = the synchronous route),
-    ``fanin_us=500``, ``governor=True``, ``warmup=True`` and
-    ``min_transport_mb_s=100`` (0 disables the gate)."""
+    ``fanin_us=500``, ``governor=True``, ``warmup=True``,
+    ``min_transport_mb_s=100`` (0 disables the gate), and the device lz4
+    routes off: ``compress_device=False`` (the engine's compress route)
+    and ``lz4_force=False`` (the synchronous one)."""
 
     name = "gpu"
+    #: the writer phase may pass per-buffer (topic, weight) QoS pairs to
+    #: compress_submit
+    accepts_qos = True
 
     # relaxed lockset declarations (analysis/races.py): the engine handle
     # is created once under gpu.engine_init and only READ lock-free
@@ -90,7 +107,8 @@ class GpuCodecProvider:
     def __init__(self, min_batches: int = 4, device=None,
                  warmup: bool = True, min_transport_mb_s: float = 100.0,
                  pipeline_depth: int = 2, fanin_us: int = 500,
-                 governor: bool = True):
+                 governor: bool = True, compress_device: bool = False,
+                 lz4_force: bool = False):
         # below this many independent buffers a launch isn't worth it;
         # fall back to the CPU provider (identical bytes either way).
         self.min_batches = max(1, int(min_batches))
@@ -102,6 +120,10 @@ class GpuCodecProvider:
         self.fanin_us = int(fanin_us)
         self.governor = bool(governor)
         self.warmup = bool(warmup)       # the engine's warmup too
+        # tpu.compress.device: producer lz4 through the engine's device
+        # compress route; tpu.lz4.force: compress_many's lz4 on the card
+        self.compress_device = bool(compress_device)
+        self.lz4_force = bool(lz4_force)
         self._engine = None
         self._engine_closed = False
         self._engine_lock = new_lock("gpu.engine_init")
@@ -114,6 +136,10 @@ class GpuCodecProvider:
                 try:
                     if self._offload_pays():
                         crc32c_torch.warm_kernel(self.device)
+                    if self.lz4_force:
+                        # the synchronous E route's build and first launch
+                        lz4_torch.lz4_block_compress_many(
+                            [bytes(LZ4F_BLOCKSIZE)], self.device)
                 except Exception:
                     pass        # the route raises at its first launch
 
@@ -146,8 +172,9 @@ class GpuCodecProvider:
 
     def wait_warm(self, timeout: float = 120.0) -> bool:
         """Block until the route is open: the warmup thread (probe and
-        kernel) has ended and, with the engine on, its lane 0 is warm.
-        True when the device route is open."""
+        kernel) has ended and, with the engine on, its lane 0 is warm —
+        its compress kernel too with ``compress_device``.  True when the
+        device route is open."""
         if self._warmup_thread is not None:
             self._warmup_thread.join(timeout)
         if not self._offload_pays():
@@ -155,12 +182,41 @@ class GpuCodecProvider:
         eng = self._get_engine()
         if eng is None or not eng.warmup_enabled:
             crc32c_torch.warm_kernel(self.device)
+            if eng is not None and self.compress_device:
+                return eng.lz4_warm_wait(timeout)
             return True
-        return eng.warm_wait(timeout)
+        if not eng.warm_wait(timeout):
+            return False
+        return not self.compress_device or eng.lz4_warm_wait(timeout)
+
+    # -------------------------------------------------------------- lz4 --
+    def _lz4f_compress_many(self, bufs: list[bytes]) -> list[bytes]:
+        """The synchronous device lz4 route: every 64 KB block of every
+        buffer in one launch of the LZ4 kernel, frames assembled on the
+        host with the native encoders' store-raw rule."""
+        blocks: list = []
+        spans: list[tuple[int, int]] = []      # (first block, count) a buf
+        for b in bufs:
+            mv = memoryview(bytes(b))
+            first = len(blocks)
+            for pos in range(0, len(mv), LZ4F_BLOCKSIZE):
+                blocks.append(mv[pos:pos + LZ4F_BLOCKSIZE])
+            spans.append((first, len(blocks) - first))
+        cblocks = lz4_torch.lz4_block_compress_many(blocks, self.device)
+        # the frame's part CRCs are not needed here: 0 stands in for them
+        return [bytes(lz4f_frame([(cblocks[i], 0, blocks[i], 0)
+                                  for i in range(first, first + nb)]))
+                for first, nb in spans]
 
     # -------------------------------------------------------- interface --
     def compress_many(self, codec: str, bufs: list[bytes], level: int = -1
                       ) -> list[bytes]:
+        """lz4 on the card with ``lz4_force`` (at quorum): the
+        deterministic encoder's bytes; everything else on the native CPU
+        path (lz4 there is the default fast parse)."""
+        if (codec == "lz4" and self.lz4_force
+                and len(bufs) >= self.min_batches):
+            return self._lz4f_compress_many(bufs)
         return self._cpu.compress_many(codec, bufs, level)
 
     def decompress_many(self, codec: str, bufs: list[bytes],
@@ -180,16 +236,33 @@ class GpuCodecProvider:
                                   size_hints, host=True)
 
     def compress_submit(self, codec: str, bufs: list[bytes],
-                        level: int = -1):
-        """Pipelined producer compress: compress_many on the engine's
-        dispatch thread as a host job, so compression of round k+1
-        overlaps the in-flight CRC launch of round k.  None when the
-        pipeline is off."""
+                        level: int = -1, qos=None):
+        """Pipelined producer compress, two routes:
+
+        * **device** — lz4 with ``compress_device`` on and the transport
+          gate open (or ``lz4_force``): the engine's compress route, one
+          launch of the LZ4 kernel with its CRC epilogue per chunk,
+          resolving to LZ4F frames (:class:`packing.FrameBlob`) that
+          carry per-part CRCs.  Bytes of
+          ``cpu.lz4f_compress_many(deterministic=True)``; the governor
+          may route a group to that CPU encoder.
+        * **host job** — everything else: compress_many on the engine's
+          dispatch thread, so compression of round k+1 overlaps the
+          in-flight launch of round k, dispatched in ``qos`` weight
+          order.
+
+        ``qos`` is an optional per-buffer ``(topic, weight)`` list.  None
+        when the pipeline is off."""
         eng = self._get_engine()
         if eng is None:
             return None
+        if (codec == "lz4" and self.compress_device
+                and (self.lz4_force or self._offload_pays())):
+            return eng.submit_compress(
+                bufs, qos=qos, window=len(bufs) < self.min_batches)
+        weight = (max((w for _, w in qos), default=1.0) if qos else 1.0)
         return eng.submit_compute(self.compress_many, codec, bufs, level,
-                                  host=True)
+                                  host=True, weight=weight)
 
     def crc32c_submit(self, bufs: list[bytes]):
         """Async pipelined CRC32C: a Ticket resolving to a uint32 ndarray
@@ -237,9 +310,11 @@ class GpuCodecProvider:
         return self._cpu_crc_fallback(bufs, poly)
 
     def fused_codec_id(self, codec: str) -> int | None:
-        """None: the device route keeps the 3-phase pipeline (frame,
-        compress, batched device CRC), as the JAX provider does whenever
-        its device route is open."""
+        """None: the 3-phase pipeline (frame, compress, batched CRC).  The
+        JAX provider hands a round to the fused native batch build only
+        when both the compress and the CRC would run on the CPU (no
+        ``lz4_force``, transport gate closed); the port has no fused
+        native build, so its pipeline serves that case too."""
         return None
 
     # ------------------------------------------------- pipelined offload --
@@ -257,6 +332,7 @@ class GpuCodecProvider:
                         fanin_window_s=self.fanin_us / 1e6,
                         min_batches=self.min_batches,
                         cpu_fallback=self._cpu_crc_fallback,
+                        cpu_compress_fallback=self._cpu_lz4_fallback,
                         name="gpu-codec-engine",
                         governor=self.governor,
                         warmup=self.warmup,
@@ -267,6 +343,14 @@ class GpuCodecProvider:
     def _cpu_crc_fallback(self, bufs, poly: str) -> list[int]:
         return (self._cpu.crc32c_many(bufs) if poly == "crc32c"
                 else self._cpu.crc32_many(bufs))
+
+    def _cpu_lz4_fallback(self, bufs) -> list[bytes]:
+        """The deterministic (insert-all) native encoder: the kernel's
+        bytes, so governor re-routes, warmup misses and shed jobs give the
+        same frames.  Not the CPU provider's fast parse, which emits a
+        different (equally valid) LZ4F stream."""
+        return _cpu.lz4f_compress_many([bytes(b) for b in bufs],
+                                       deterministic=True)
 
     def close(self) -> None:
         """Tear down the async engine (drains in-flight launches) and

@@ -1,0 +1,574 @@
+"""Batched LZ4 block compression on an NVIDIA GPU, with the CRC32C of the
+compressed and the raw rows in the same launch — bit-exact with the
+deterministic insert-all encoder of ops/native/codec.cpp
+(``tk_lz4_block_compress``).
+
+The port of librdkafka_tpu/ops/lz4_jax.py: its device functions E (the
+vmapped encoder, ``lz4_block_compress_many``), F (the fused compress→CRC
+launch of the engine's compress route) and the CRC D inside F become one
+hand-written kernel, ``csrc/lz4_rows.cu``, whose ``with_crc`` flag picks
+the CRCs computed:
+
+  - ``"none"``: the compressed rows and their lengths (E);
+  - ``"both"``: also the CRC32C of each compressed row and of each raw
+    row (F), so the MessageSet v2 batch CRC folds on the host
+    (packing.FrameBlob);
+  - ``"raw"``: the raw rows' CRC32C only (models/codec_step.py, I).
+
+:func:`lz4_rows` is the kernel's wrapper on the TPU's row contract:
+``data`` (B, N) uint8 right-padded, ``lens`` (B,) int32 → ``comp`` (B, C)
+uint8 zeroed past ``olen``, C = N + N // 255 + 16.  On a CUDA tensor it
+launches the kernel (built with nvcc at first use, loaded with ctypes) or
+raises; on a CPU tensor it runs :func:`lz4_rows_reference`, the plain
+PyTorch version (a transcription of the JAX formulation: sort for the
+equal-hash predecessor, blocked match extension, pointer-doubling parse,
+searchsorted emission).  The engine's form (``plan_lz4`` … ``read_lz4``)
+packs the blocks with no padding into a pinned slot and reads back only
+the compressed bytes the kernel made.
+
+``launches`` counts kernel launches, ``h2d_bytes`` / ``d2h_bytes`` the
+bytes the routes copied to and from the card.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import threading
+
+import numpy as np
+import torch
+
+from . import crc32c_torch as _crc
+from .packing import LZ4F_BLOCKSIZE, next_pow2, pad_right
+
+HASH_BITS = 12
+MAXMATCH = 273
+MINMATCH = 4
+MODES = ("none", "both", "raw")
+
+#: kernel launches made by :func:`lz4_rows` and :func:`launch_lz4` (not by
+#: the plain version)
+launches = 0
+#: bytes the compress routes copied host → device and device → host
+h2d_bytes = 0
+d2h_bytes = 0
+
+CU_SRC = os.path.join(os.path.dirname(_crc.CU_SRC), "lz4_rows.cu")
+SO = os.path.join(_crc.BUILD_DIR, "liblz4_rows.so")
+
+_lib = None
+_lib_lock = threading.Lock()
+_count_lock = threading.Lock()
+#: nvcc's output of the last build (ptxas register / spill report)
+build_log = ""
+
+
+def _bound(n: int) -> int:
+    return n + n // 255 + 16
+
+
+def _count(launched: int = 0, h2d: int = 0, d2h: int = 0) -> None:
+    global launches, h2d_bytes, d2h_bytes
+    with _count_lock:
+        launches += launched
+        h2d_bytes += h2d
+        d2h_bytes += d2h
+
+
+# ------------------------------------------------------- plain version --
+
+def _extlen(L: torch.Tensor) -> torch.Tensor:
+    """Number of length-extension bytes of a literal / match run field."""
+    return torch.where(L >= 15, (L - 15) // 255 + 1, torch.zeros_like(L))
+
+
+def _hash(val: torch.Tensor) -> torch.Tensor:
+    """(val * 2654435761) mod 2^32 >> 20 in int64 without overflow: CPU
+    torch has no uint32 arithmetic, so the product is taken in 16-bit
+    halves."""
+    k = 2654435761
+    lo = (val & 0xFFFF) * k
+    hi = (((val >> 16) * k) & 0xFFFF) << 16
+    return ((lo + hi) & 0xFFFFFFFF) >> (32 - HASH_BITS)
+
+
+def _compress_rows(data: torch.Tensor, lens: torch.Tensor):
+    """``_lz4_block_one`` (lz4_jax.py:63-196) over rows at once: (B, N)
+    uint8 right-padded, lens (B,) → ((B, C) uint8, (B,) int64).  Every
+    clip of the JAX version is explicit here: torch's gathers raise where
+    jax clamps."""
+    B, N = data.shape
+    dev = data.device
+    C = _bound(N)
+    D = N + 2
+    i64 = torch.int64
+    pos = torch.arange(N, dtype=i64, device=dev).expand(B, N)
+    n = lens.to(i64).view(B, 1)
+    d = data.to(i64)
+
+    def at(idx):
+        return torch.gather(d, 1, idx.clamp(0, N - 1))
+
+    val = at(pos) | (at(pos + 1) << 8) | (at(pos + 2) << 16) \
+        | (at(pos + 3) << 24)
+    h = _hash(val)
+
+    # candidate[p]: the previous position with an equal hash, from one sort
+    # of unique composite keys (hash << 17 | pos)
+    skey = torch.sort((h << 17) | pos, dim=1).values
+    order = skey & ((1 << 17) - 1)
+    h_sorted = skey >> 17
+    prev = torch.cat([torch.full((B, 1), -1, dtype=i64, device=dev),
+                      order[:, :-1]], 1)
+    same = torch.cat([torch.zeros((B, 1), dtype=torch.bool, device=dev),
+                      h_sorted[:, 1:] == h_sorted[:, :-1]], 1)
+    cand = torch.zeros((B, N), dtype=i64, device=dev).scatter_(
+        1, order, torch.where(same, prev, -1))
+    valid = ((cand >= 0) & (pos - cand <= 65535)
+             & (torch.gather(val, 1, cand.clamp(0, N - 1)) == val)
+             & (pos + 12 <= n))
+
+    # match lengths: blocked longest common extension, 16 bytes a round
+    mmax = torch.clamp(n - 5 - pos, max=MAXMATCH)
+    k16 = torch.arange(16, dtype=i64, device=dev)
+
+    def g16(base):
+        idx = (base.unsqueeze(-1) + k16).clamp(0, N - 1)
+        return torch.gather(data, 1, idx.view(B, -1)).view(B, N, 16)
+
+    mlen = torch.where(valid, MINMATCH, 0).to(i64)
+    active = valid & (mlen < mmax)
+    while bool(active.any()):
+        neq = g16(cand + mlen) != g16(pos + mlen)
+        run = torch.where(neq.any(-1), neq.to(torch.uint8).argmax(-1), 16)
+        mlen = mlen + torch.where(active, torch.minimum(run, mmax - mlen), 0)
+        active = active & (run == 16) & (mlen < mmax)
+
+    # the greedy parse by pointer doubling over the successor graph
+    sink = N + 1
+    nxt = torch.where(valid, pos + mlen, pos + 1)
+    jump = torch.where(pos + 12 <= n, torch.clamp(nxt, max=sink), sink)
+    J = torch.cat([jump, torch.full((B, 2), sink, dtype=i64, device=dev)], 1)
+    on = torch.zeros((B, D), dtype=torch.bool, device=dev)
+    on[:, 0] = True
+    for _ in range(int(np.ceil(np.log2(N + 2))) + 1):
+        on = on.scatter(1, torch.where(on, J, sink), True)
+        J = torch.gather(J, 1, J)
+    match_here = on[:, :N] & valid
+
+    # anchors, literal runs, per-sequence sizes and offsets
+    mend = torch.where(match_here, pos + mlen, 0)
+    cm = torch.cummax(mend, dim=1).values
+    anchor = torch.cat([torch.zeros((B, 1), dtype=i64, device=dev),
+                        cm[:, :-1]], 1)
+    lit = pos - anchor
+    final_anchor = cm[:, -1]
+    final_lit = lens.to(i64) - final_anchor
+    sz = torch.where(match_here,
+                     1 + _extlen(lit) + lit + 2 + _extlen(mlen - MINMATCH), 0)
+    csum = torch.cumsum(sz, 1)
+    total_seq = csum[:, -1]
+    S = match_here.sum(1)
+    total_out = total_seq + 1 + _extlen(final_lit) + final_lit
+
+    # dense sequence tables (+ a pseudo sequence for the final run)
+    di = torch.where(match_here, torch.cumsum(match_here.to(i64), 1) - 1,
+                     D - 1)
+    junk = torch.tensor([C + 1, 0, 0, MINMATCH, 0], dtype=i64, device=dev)
+    tbl = junk.view(5, 1, 1).expand(5, B, D).clone()
+    vals = torch.stack([csum - sz, lit, anchor, mlen, pos - cand])
+    tbl.scatter_(2, di.unsqueeze(0).expand(5, B, N), vals)
+    tbl[:, :, D - 1] = junk.view(5, 1)
+    tbl[:3].scatter_(2, S.view(1, B, 1).expand(3, B, 1),
+                     torch.stack([total_seq, final_lit, final_anchor])
+                     .unsqueeze(-1))
+
+    # every output byte from its sequence (searchsorted needs the table's
+    # offsets non-decreasing: real entries increase, pseudo = total_seq,
+    # junk = C + 1)
+    j = torch.arange(C, dtype=i64, device=dev).expand(B, C).contiguous()
+    i = torch.searchsorted(tbl[0].contiguous(), j, right=True) - 1
+    i = i.clamp(0, D - 1)
+    G = torch.gather(tbl, 2, i.unsqueeze(0).expand(5, B, C))
+    r = j - G[0]
+    L = G[1]
+    elq = _extlen(L)
+    A = G[2]
+    M = G[3] - MINMATCH
+    emq = _extlen(M)
+    hasm = i < S.view(B, 1)
+    token = (torch.clamp(L, max=15) << 4) | torch.where(
+        hasm, torch.clamp(M, max=15), 0)
+    off = G[4]
+    lit_start = 1 + elq
+    lit_end = lit_start + L
+    litb = at(A + r - lit_start)
+    mk = r - lit_end - 1
+    byte = torch.where(mk < emq, 255, (M - 15) % 255)
+    byte = torch.where(r == lit_end + 1, off >> 8, byte)
+    byte = torch.where(r == lit_end, off & 0xFF, byte)
+    byte = torch.where((r >= lit_start) & (r < lit_end), litb, byte)
+    byte = torch.where((r >= 1) & (r <= elq),
+                       torch.where(r < elq, 255, (L - 15) % 255), byte)
+    byte = torch.where(r == 0, token, byte)
+    byte = torch.where(j < total_out.view(B, 1), byte, 0)
+    return byte.to(torch.uint8), total_out
+
+
+def _crc_of_rows(rows: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """The standard CRC32C of ``rows[b, :lens[b]]`` (D's function), by the
+    CRC kernel's plain version; (B,) int64."""
+    B, W = rows.shape
+    return _crc.crc_segments_reference(
+        rows.reshape(-1), torch.arange(B, dtype=torch.int64) * W,
+        lens.to(torch.int64).cpu(), torch.zeros(B, dtype=torch.int32))
+
+
+def _check(data: torch.Tensor, lens: torch.Tensor, with_crc: str):
+    if data.dtype != torch.uint8 or data.dim() != 2:
+        raise ValueError("data must be a (B, N) uint8 tensor")
+    B, N = data.shape
+    if N < 16 or N > LZ4F_BLOCKSIZE or N % 16:
+        raise ValueError(f"row width {N} must be a multiple of 16 in "
+                         f"[16, {LZ4F_BLOCKSIZE}]")
+    if lens.shape != (B,) or lens.dtype != torch.int32:
+        raise ValueError("lens must be a (B,) int32 tensor")
+    if lens.device != data.device:
+        raise ValueError("data and lens must share a device")
+    if with_crc not in MODES:
+        raise ValueError(f"with_crc must be one of {MODES}")
+    return B, N
+
+
+def lz4_rows_reference(data: torch.Tensor, lens: torch.Tensor,
+                       with_crc: str = "none"):
+    """The kernel's function in plain PyTorch, on data's device.
+
+    data (B, N) uint8 right-padded, lens (B,) int32 in [0, N].  Returns
+    (comp (B, C) uint8 zeroed past olen, olen (B,) int32, crc_comp,
+    crc_raw), each CRC a (B,) int64 holding the uint32, or None where
+    ``with_crc`` does not ask for it.  Rows are taken in groups of about
+    1 MB (the match extension gathers 16 bytes per position)."""
+    B, N = _check(data, lens, with_crc)
+    if B and (int(lens.min()) < 0 or int(lens.max()) > N):
+        raise ValueError("lens must lie in [0, N]")
+    C = _bound(N)
+    comp = torch.zeros((B, C), dtype=torch.uint8, device=data.device)
+    olen = torch.zeros((B,), dtype=torch.int64, device=data.device)
+    step = max(1, (1 << 20) // N)
+    for s in range(0, B, step):
+        comp[s:s + step], olen[s:s + step] = _compress_rows(
+            data[s:s + step], lens[s:s + step])
+    crc_comp = _crc_of_rows(comp, olen) if with_crc == "both" else None
+    crc_raw = _crc_of_rows(data, lens) if with_crc != "none" else None
+    if crc_comp is not None:
+        crc_comp = crc_comp.to(data.device)
+    if crc_raw is not None:
+        crc_raw = crc_raw.to(data.device)
+    return comp, olen.to(torch.int32), crc_comp, crc_raw
+
+
+# -------------------------------------------------------- CUDA kernel --
+
+def _kernel_lib() -> ctypes.CDLL:
+    global _lib, build_log
+    with _lib_lock:
+        if _lib is None:
+            so, log = _crc.build_kernel(CU_SRC, SO)
+            build_log = log or build_log
+            L = ctypes.CDLL(so)
+            vp = ctypes.c_void_p
+            L.lz4_rows_launch.argtypes = [vp] * 10 + [
+                ctypes.c_int64, ctypes.c_int, ctypes.c_int, vp]
+            L.lz4_rows_launch.restype = ctypes.c_int
+            _lib = L
+    return _lib
+
+
+def _fire(stream, data_ptr, row_offs_ptr, lens_ptr, comp_ptr, cursor_ptr,
+          offs_ptr, olen_ptr, cc_ptr, cr_ptr, B: int, N: int) -> None:
+    """One kernel launch on ``stream``, serialized with the card's other
+    launches of the port (crc32c_torch.serialized_launch: the CRC grid is
+    cooperative and must not share the card)."""
+    lib = _kernel_lib()
+    consts = _crc._device_consts(stream.device).data_ptr()
+    _crc.serialized_launch(
+        stream, lambda: lib.lz4_rows_launch(
+            data_ptr, row_offs_ptr, lens_ptr, comp_ptr, cursor_ptr, offs_ptr,
+            olen_ptr, cc_ptr, cr_ptr, consts, B, N, _bound(N),
+            stream.cuda_stream), "lz4_rows")
+    _count(launched=1)
+
+
+def lz4_rows(data: torch.Tensor, lens: torch.Tensor, with_crc: str = "none"):
+    """LZ4-compress each row ``data[b, :lens[b]]``; returns (comp (B, C)
+    uint8 zeroed past olen, olen (B,) int32, crc_comp, crc_raw) as
+    :func:`lz4_rows_reference` does.  A CUDA ``data`` launches
+    csrc/lz4_rows.cu on torch's current stream (lens outside [0, N] are
+    clamped there); a CPU ``data`` runs the plain version."""
+    B, N = _check(data, lens, with_crc)
+    if data.device.type == "cpu":
+        return lz4_rows_reference(data, lens, with_crc)
+    if data.device.type != "cuda":
+        raise ValueError(f"lz4_rows: unsupported device {data.device}")
+    data, lens = data.contiguous(), lens.contiguous()
+    dev = data.device
+    comp = torch.empty((B, _bound(N)), dtype=torch.uint8, device=dev)
+    olen = torch.empty((B,), dtype=torch.int32, device=dev)
+    cc = (torch.empty((B,), dtype=torch.int64, device=dev)
+          if with_crc == "both" else None)
+    cr = (torch.empty((B,), dtype=torch.int64, device=dev)
+          if with_crc != "none" else None)
+    if B:
+        _fire(torch.cuda.current_stream(dev), data.data_ptr(), None,
+              lens.data_ptr(), comp.data_ptr(), None, None, olen.data_ptr(),
+              None if cc is None else cc.data_ptr(),
+              None if cr is None else cr.data_ptr(), B, N)
+    return comp, olen, cc, cr
+
+
+def lz4_block_compress_many(blocks: list[bytes], device=None) -> list[bytes]:
+    """Compress many ≤ 64 KB blocks in one launch (the E route of
+    ``GpuCodecProvider(lz4_force=True)``); bytes equal
+    ``cpu.lz4_block_compress``'s."""
+    if not blocks:
+        return []
+    dev = _crc.resolve_device(device)
+    N = next_pow2(max(len(b) for b in blocks))
+    data, lens = pad_right(blocks, N)
+    d, ln = torch.from_numpy(data), torch.from_numpy(lens)
+    if dev.type != "cpu":
+        d, ln = d.to(dev), ln.to(dev)
+        _count(h2d=data.nbytes + lens.nbytes)
+    comp, olen, _, _ = lz4_rows(d, ln)
+    olen = olen.cpu().numpy()
+    # only the bytes made come back: one row slice per block, then one copy
+    width = int(olen.max())
+    rows = comp[:, :width].cpu().numpy()
+    if dev.type != "cpu":
+        _count(d2h=rows.nbytes + olen.nbytes)
+    return [rows[i, :olen[i]].tobytes() for i in range(len(blocks))]
+
+
+# ------------------------------------------------------ engine staging --
+# The engine's form of the route (ops/engine.py's compress route): a
+# launch's blocks are filled back to back (each 16-byte aligned) into a
+# pinned slot of the lane's rings, cross in ONE non-blocking copy on the
+# lane's stream, are compressed by one launch with the CRC epilogue
+# ("both") into a packed output claimed by an atomic cursor, and the
+# launch's metadata (cursor, offsets, CRCs, lengths) comes back with one
+# non-blocking copy into the slot.  The readback waits for that copy, then
+# copies only the cursor's bytes.
+
+class Lz4Plan:
+    """One launch of the engine's compress route, planned by
+    :func:`plan_lz4` from the lengths of the job buffers it carries."""
+
+    __slots__ = ("B", "N", "lens", "row_offs", "buf_offs", "spans",
+                 "flat_bytes", "nbytes", "cap", "meta", "out_words")
+
+
+def plan_lz4(buf_lens) -> Lz4Plan:
+    """Cut buffers of ``buf_lens`` bytes into LZ4F blocks of 64 KB (an
+    empty buffer has none) and lay them back to back: each buffer starts
+    16-byte aligned, so its full blocks are contiguous and aligned.
+    ``spans`` gives (first block, block count) per buffer."""
+    block = LZ4F_BLOCKSIZE
+    buf_lens = np.asarray(buf_lens, dtype=np.int64)
+    counts = -(-buf_lens // block)
+    spans = list(zip((np.cumsum(counts) - counts).tolist(), counts.tolist()))
+    padded = (buf_lens + 15) & ~15
+    buf_offs = np.cumsum(padded) - padded
+    lens = np.concatenate([np.minimum(block, n - np.arange(0, n, block))
+                           for n in buf_lens.tolist() if n]
+                          or [np.zeros(0, np.int64)]).astype(np.int64)
+    within = np.concatenate([np.arange(0, n, block)
+                             for n in buf_lens.tolist() if n]
+                            or [np.zeros(0, np.int64)]).astype(np.int64)
+    owner = np.repeat(np.arange(len(buf_lens)), counts)
+    plan = Lz4Plan()
+    plan.B = B = len(lens)
+    plan.N = max(16, int((lens.max() + 15) & ~15)) if B else 16
+    plan.lens = lens.astype(np.int32)
+    plan.row_offs = buf_offs[owner] + within
+    plan.buf_offs = buf_offs
+    plan.spans = spans
+    plan.flat_bytes = int(padded.sum())
+    meta = np.concatenate([plan.row_offs.view(np.uint8),
+                           np.concatenate([plan.lens, np.zeros(B % 2, np.int32)])
+                           .view(np.uint8)])
+    plan.meta = meta
+    plan.nbytes = plan.flat_bytes + meta.nbytes
+    plan.cap = max(16, int(lens.sum() + lens.size * 16 + (lens // 255).sum()))
+    # cursor, offsets, crc_comp, crc_raw (int64 each), olen (int32 pairs)
+    plan.out_words = 1 + 3 * B + -(-B // 2)
+    return plan
+
+
+def fill_lz4(slot: "_crc.Slot", plan: Lz4Plan, bufs) -> None:
+    """Write the planned buffers into ``slot`` (after the slot's last
+    launch no longer reads it), then the metadata."""
+    if plan.nbytes > slot.cap:
+        raise ValueError(f"launch of {plan.nbytes} B over its slot's "
+                         f"{slot.cap}")
+    slot.wait()
+    host = slot.host.numpy()
+    for off, b in zip(plan.buf_offs.tolist(), bufs):
+        host[off:off + len(b)] = np.frombuffer(b, dtype=np.uint8)
+    host[plan.flat_bytes:plan.nbytes] = plan.meta
+    if slot.out.numel() < plan.out_words:
+        slot.out = torch.empty((_crc._pow2(plan.out_words, 1024),),
+                               dtype=torch.int64, pin_memory=slot.pin)
+
+
+class Lz4Launch:
+    """What an engine launch keeps until its readback: on a card the
+    device output and metadata (allocated on the lane's stream, one pair
+    per launch in flight); on a CPU lane the plain version's results."""
+
+    __slots__ = ("comp", "meta", "result")
+
+    def __init__(self, comp=None, meta=None, result=None):
+        self.comp = comp
+        self.meta = meta
+        self.result = result
+
+
+def launch_lz4(slot: "_crc.Slot", plan: Lz4Plan,
+               lane: "_crc.LaneBuffers") -> Lz4Launch:
+    """Queue the slot's H2D copy, the kernel ("both") and the D2H copy of
+    the metadata on the lane's stream, then mark the slot's event.  A CPU
+    lane runs :func:`lz4_rows` on rows rebuilt from the slot (the plain
+    version)."""
+    B = plan.B
+    if lane.stream is None:
+        flat = slot.host[:plan.flat_bytes]
+        data = torch.zeros((B, plan.N), dtype=torch.uint8)
+        for r, (o, n) in enumerate(zip(plan.row_offs.tolist(),
+                                       plan.lens.tolist())):
+            data[r, :n] = flat[o:o + n]
+        comp, olen, cc, cr = lz4_rows(data, torch.from_numpy(plan.lens),
+                                      "both")
+        olen = olen.numpy()
+        offs = np.cumsum(olen.astype(np.int64)) - olen
+        packed = np.concatenate([comp[r, :olen[r]].numpy()
+                                 for r in range(B)] or [np.zeros(0, np.uint8)])
+        return Lz4Launch(result=(packed, offs, olen,
+                                 cc.numpy().astype(np.uint32),
+                                 cr.numpy().astype(np.uint32)))
+    dev = lane.device
+    with torch.cuda.stream(lane.stream):
+        lane.reserve(plan.nbytes, 0, 0)
+        lane.flat[:plan.nbytes].copy_(slot.host[:plan.nbytes],
+                                      non_blocking=True)
+        comp = torch.empty((plan.cap,), dtype=torch.uint8, device=dev)
+        meta = torch.zeros((plan.out_words,), dtype=torch.int64, device=dev)
+    _count(h2d=plan.nbytes)
+    base = lane.flat.data_ptr()
+    at = meta.data_ptr()
+    _fire(lane.stream, base, base + plan.flat_bytes,
+          base + plan.flat_bytes + 8 * B, comp.data_ptr(), at, at + 8,
+          at + 8 * (1 + 3 * B), at + 8 * (1 + B), at + 8 * (1 + 2 * B), B,
+          plan.N)
+    with torch.cuda.stream(lane.stream):
+        slot.out[:plan.out_words].copy_(meta, non_blocking=True)
+        slot.event = torch.cuda.Event()
+        slot.event.record(lane.stream)
+    return Lz4Launch(comp=comp, meta=meta)
+
+
+def read_lz4(slot: "_crc.Slot", plan: Lz4Plan, handle: Lz4Launch,
+             stream=None):
+    """The launch's results once its metadata has landed: (packed bytes
+    (uint8 array), offsets (B,), olen (B,), crc_comp (B,) uint32, crc_raw
+    (B,) uint32).  On a card only the cursor's bytes are copied back, on
+    ``stream`` (the lane's readback stream: the lane's own may already
+    hold the next launch)."""
+    if handle.result is not None:
+        return handle.result
+    slot.wait()
+    B = plan.B
+    m = slot.out[:plan.out_words].numpy().copy()
+    used = int(m[0])
+    if used > plan.cap:
+        raise RuntimeError(f"lz4 launch wrote {used} B past its {plan.cap}")
+    offs = m[1:1 + B]
+    cc = m[1 + B:1 + 2 * B].astype(np.uint32)
+    cr = m[1 + 2 * B:1 + 3 * B].astype(np.uint32)
+    olen = m[1 + 3 * B:].view(np.int32)[:B]
+    with torch.cuda.stream(stream or torch.cuda.current_stream(
+            handle.comp.device)):
+        packed = handle.comp[:used].cpu().numpy()
+    _count(d2h=plan.out_words * 8 + used)
+    return packed, offs, olen, cc, cr
+
+
+# ------------------------------------------------------ warm registry --
+# The port of lz4_jax.py's warm registry (:220-357), keyed by device.  One
+# build serves every shape, so a device is warm once the build is loaded,
+# the CRC constants are on that device and one launch on a small row has
+# matched the plain version there.  The engine owns the registry: its
+# close() drops it (release_device_kernels), and the tests assert
+# device_kernel_count() == 0 afterwards.
+
+_READY: dict[str, bool] = {}
+_warm_lock = threading.Lock()
+
+
+def kernel_ready(device=None) -> bool:
+    """True once :func:`warm_kernel` has run for ``device``."""
+    return _crc._dev_key(device) in _READY
+
+
+def ready_kernel(device=None):
+    """The warmed kernel wrapper for ``device`` (:func:`lz4_rows`, every
+    shape), or None before :func:`warm_kernel`."""
+    return lz4_rows if kernel_ready(device) else None
+
+
+def warm_bucket_count(device=None) -> int:
+    """Warm compress kernels on ``device``: 1 or 0."""
+    return int(kernel_ready(device))
+
+
+def warm_kernel(device=None) -> None:
+    """Make ``device`` warm.  Idempotent and safe from any thread; a card
+    whose build or first launch fails raises (the engine's lane then
+    fails its compress jobs with that error)."""
+    key = _crc._dev_key(device)
+    if key in _READY:
+        return
+    with _warm_lock:
+        if key in _READY:
+            return
+        dev = torch.device(key)
+        if dev.type == "cuda":
+            _kernel_lib()
+            row = (b"warm " * 13)[:64]
+            data, lens = pad_right([row], 64)
+            want = lz4_rows_reference(torch.from_numpy(data),
+                                      torch.from_numpy(lens), "both")
+            got = lz4_rows(torch.from_numpy(data).to(dev),
+                           torch.from_numpy(lens).to(dev), "both")
+            torch.cuda.synchronize(dev)
+            if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+                raise RuntimeError(f"warm lz4 launch on {key} differs from "
+                                   f"the plain version")
+        _READY[key] = True
+
+
+def device_kernel_count() -> int:
+    """Warm devices held by the registry (0 after every engine close)."""
+    return len(_READY)
+
+
+def release_device_kernels() -> None:
+    """Drop the warm registry (AsyncOffloadEngine.close())."""
+    with _warm_lock:
+        _READY.clear()
+
+
+def release() -> None:
+    """Drop every cached compress state of the port: the warm registry
+    (the ctypes library stays loaded for the process)."""
+    release_device_kernels()

@@ -10,15 +10,29 @@ keeps; the port's CRC route itself packs buffers with no padding
 Also home of the LZ4F frame shape of the fused device compress route:
 :class:`FrameBlob` is an assembled frame that carries the crc32c of each
 of its parts, so the MessageSet v2 batch CRC can be folded host-side
-with crc32c_combine instead of re-scanning the frame bytes.  The port's
-writer phase accepts one (client/codec_phase.py); the device route that
-produces them comes with the engine slice.
+with crc32c_combine instead of re-scanning the frame bytes.  The engine's
+compress route (ops/engine.py) builds them with :func:`lz4f_frame` from
+the LZ4 kernel's rows and CRCs; the writer phase folds them
+(client/codec_phase.py).
 """
 from __future__ import annotations
+
+import struct
 
 import numpy as np
 
 from ..utils.crc import crc32c, crc32c_combine
+
+#: LZ4F defaults matching the native encoder (tk_lz4f_compress_many):
+#: FLG 0x60 (v01, block-independent), BD 0x40 (64KB max block),
+#: HC = (xxh32(FLG||BD) >> 8) & 0xFF = 0x82 — the bit-exactness tests
+#: assert whole-frame equality with the native encoder, which pins it.
+LZ4F_MAGIC = 0x184D2204
+LZ4F_BLOCKSIZE = 65536
+LZ4F_HEADER = struct.pack("<IBBB", LZ4F_MAGIC, 0x60, 0x40, 0x82)
+LZ4F_ENDMARK = b"\x00\x00\x00\x00"
+_HEADER_CRC = crc32c(LZ4F_HEADER)
+_ENDMARK_CRC = crc32c(LZ4F_ENDMARK)
 
 
 class FrameBlob(bytes):
@@ -38,6 +52,24 @@ class FrameBlob(bytes):
         for c, ln in self.crc_parts:
             acc = crc32c_combine(acc, c, ln)
         return acc
+
+
+def lz4f_frame(bodies) -> FrameBlob:
+    """Assemble one LZ4F frame from per-block ``(comp, comp_crc, raw,
+    raw_crc)`` tuples.  Block choice matches the native encoders
+    bit-for-bit: the compressed body iff it is strictly smaller, else
+    the raw bytes with the store-raw high bit on the length word."""
+    parts = [(LZ4F_HEADER, _HEADER_CRC)]
+    for comp, comp_crc, raw, raw_crc in bodies:
+        if len(comp) < len(raw):
+            word, body, crc = len(comp), comp, comp_crc
+        else:
+            word, body, crc = len(raw) | 0x80000000, bytes(raw), raw_crc
+        prefix = struct.pack("<I", word)
+        parts.append((prefix, crc32c(prefix)))
+        parts.append((body, crc))
+    parts.append((LZ4F_ENDMARK, _ENDMARK_CRC))
+    return FrameBlob(parts)
 
 
 def next_pow2(n: int, lo: int = 64) -> int:

@@ -1,10 +1,13 @@
 """Tests of the port that need a CUDA card: the hand-written segment kernel
 (csrc/crc_rows.cu), through ``crc_rows`` and ``crc_segments``, against its
 plain versions and the CPU oracles, the GPU provider on its default
-device (synchronous route), and the async offload engine on the card
+device (synchronous route), the async offload engine on the card
 (pinned staging rings reused while copies are in flight, the fused
 launch, one launch per round, the H2D bytes, close with tickets in
-flight, first launches from two threads).  Marked ``gpu``; each skips on a
+flight, first launches from two threads), and the LZ4 kernel
+(csrc/lz4_rows.cu) against its plain version and the native encoder in
+every ``with_crc`` mode, beside a CRC launch on another stream, and
+through the engine's compress route.  Marked ``gpu``; each skips on a
 host without CUDA.  On a card (tests/conftest.py imports jax, which the
 GPU host lacks):
 
@@ -238,3 +241,146 @@ def test_first_launches_from_two_threads_fresh_process(card):
     res = subprocess.run([sys.executable, "-c", _TWO_THREADS], cwd=root,
                          capture_output=True, text=True, timeout=600)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+# ------------------------------------------------ the LZ4 kernel on the card --
+
+def _lz4_sweep():
+    rng = np.random.default_rng(135)
+    blocks = [b"", b"Z", b"x" * 12, b"abcdabcdabcda", b"kv-pair " * 128,
+              b"ab" * 32767 + b"xy", rng.integers(0, 256, 3000,
+                                                  dtype=np.uint8).tobytes(),
+              rng.integers(0, 4, 65536, dtype=np.uint8).tobytes()]
+    blocks += [b"z" * n for n in (15, 300, 65536)]
+    return blocks
+
+
+def _main_path_blocks():
+    """1,024 blocks of 64 KB cut from the main path's produce round: 64
+    partitions x 960 records x 1 KB of the benchmark's JSON values."""
+    from librdkafka_tpu_torch.protocol.msgset import MsgsetWriterV2
+    base = (b'{"seq": %07d, "user": "u%05d", "event": "click", '
+            b'"props": "abcdefghijklmnopqrstuvwxyz0123456789"}')
+    vals = [(base % (i, i % 1000) * 11)[:1024] for i in range(4096)]
+    blocks = []
+    for p in range(64):
+        recs = [Record(value=vals[(p * 960 + i) % 4096]) for i in range(960)]
+        rb = MsgsetWriterV2(codec="lz4").build(recs,
+                                               1_700_000_000_000).records_bytes
+        blocks += [rb[i:i + 65536] for i in range(0, len(rb), 65536)]
+    return blocks[:1024]
+
+
+@pytest.mark.parametrize("mode", ["none", "both", "raw"])
+@pytest.mark.parametrize("shape", ["sweep", "main path"])
+def test_lz4_kernel_equals_plain_and_native(card, mode, shape):
+    from librdkafka_tpu_torch.ops import lz4_torch
+    from librdkafka_tpu_torch.ops.packing import pad_right
+    blocks = _lz4_sweep() if shape == "sweep" else _main_path_blocks()
+    data, lens = pad_right(blocks, 65536)
+    d, ln = torch.from_numpy(data).to(card), torch.from_numpy(lens).to(card)
+    before = lz4_torch.launches
+    got = lz4_torch.lz4_rows(d, ln, mode)
+    torch.cuda.synchronize()
+    assert lz4_torch.launches == before + 1
+    ref = lz4_torch.lz4_rows_reference(d, ln, mode)
+    for g, r in zip(got, ref):
+        assert (g is None) == (r is None)
+        if g is not None:
+            assert torch.equal(g, r)
+    comp, olen = got[0].cpu().numpy(), got[1].cpu().numpy()
+    want = [native.lz4_block_compress(b) for b in blocks]
+    assert [comp[i, :olen[i]].tobytes() for i in range(len(blocks))] == want
+    if mode == "both":
+        assert got[2].cpu().tolist() == [native.crc32c(w) for w in want]
+    if mode != "none":
+        assert got[3].cpu().tolist() == [native.crc32c(b) for b in blocks]
+
+
+def test_lz4_and_crc_launches_on_two_streams_do_not_wedge(card):
+    """An LZ4 launch and a cooperative CRC launch queued from two threads
+    on two streams: both finish (launches of the port are serialized on
+    the card), both exact."""
+    import threading
+    from librdkafka_tpu_torch.ops import lz4_torch
+    from librdkafka_tpu_torch.ops.packing import pad_right
+    blocks = _main_path_blocks()[:512]
+    data, lens = pad_right(blocks, 65536)
+    want = [native.crc32c(native.lz4_block_compress(b)) for b in blocks]
+    rng = np.random.default_rng(9)
+    bufs = [rng.integers(0, 256, 70_000, dtype=np.uint8).tobytes()
+            for _ in range(64)]
+    out, errs = {}, []
+
+    def lz4_side():
+        try:
+            s = torch.cuda.Stream(card)
+            with torch.cuda.stream(s):
+                d = torch.from_numpy(data).to(card)
+                ln = torch.from_numpy(lens).to(card)
+                for k in range(4):
+                    out[("lz4", k)] = lz4_torch.lz4_rows(d, ln, "both")[2]
+                s.synchronize()
+        except Exception as e:          # reported below
+            errs.append(e)
+
+    def crc_side():
+        try:
+            s = torch.cuda.Stream(card)
+            with torch.cuda.stream(s):
+                for k in range(16):
+                    out[("crc", k)] = crc.crc32c_many(bufs)
+        except Exception as e:
+            errs.append(e)
+
+    ths = [threading.Thread(target=f) for f in (lz4_side, crc_side)]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(300)
+    assert not any(th.is_alive() for th in ths), "a launch wedged"
+    assert not errs, errs
+    torch.cuda.synchronize()
+    for k in range(4):
+        assert out[("lz4", k)].cpu().tolist() == want
+    for k in range(16):
+        assert out[("crc", k)].tolist() == [native.crc32c(b) for b in bufs]
+
+
+class _DetProvider(native.CpuCodecProvider):
+    """The deterministic-writer oracle: the CPU provider with lz4 on the
+    native insert-all encoder (the kernel's bytes)."""
+
+    def compress_many(self, codec, bufs, level=-1):
+        if codec == "lz4":
+            return native.lz4f_compress_many([bytes(b) for b in bufs],
+                                             deterministic=True)
+        return super().compress_many(codec, bufs, level)
+
+
+def test_engine_compress_route_on_card(card):
+    """The device compress route on the card: warm, governor off, a round
+    is one LZ4 launch and no CRC launch; frames == the deterministic
+    encoder's, and only the compressed bytes come back."""
+    from librdkafka_tpu_torch import submit_batches
+    from librdkafka_tpu_torch.ops import lz4_torch
+    prov = GpuCodecProvider(min_batches=1, governor=False,
+                            compress_device=True)
+    try:
+        assert prov.wait_warm(300)
+        parts = [[Record(value=b"%d-" % i * 300) for i in range(200)]
+                 for _ in range(8)]
+        l0, c0, d0 = lz4_torch.launches, crc.launches, lz4_torch.d2h_bytes
+        wire = submit_batches(prov, parts, "lz4",
+                              1_700_000_000_000).result(120)
+        assert lz4_torch.launches == l0 + 1 and crc.launches == c0
+        assert wire == write_batches(_DetProvider(), parts, "lz4",
+                                     1_700_000_000_000)
+        eng = prov._engine
+        assert eng.compress_stats["launches"] == 1
+        assert not any(eng.compress_stats[k] for k in (
+            "cpu_jobs", "warmup_miss_jobs", "routed_cpu_jobs", "shed_jobs"))
+        assert lz4_torch.d2h_bytes - d0 < sum(len(w) for w in wire) + 8192
+    finally:
+        prov.close()
+    assert lz4_torch.device_kernel_count() == 0

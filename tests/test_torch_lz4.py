@@ -1,0 +1,217 @@
+"""The port's LZ4 kernel module (librdkafka_tpu_torch/ops/lz4_torch.py) and
+its codec step (models/codec_step.py) held against the JAX package's
+lz4_jax (E and the fused F) and models/codec_step (I), and against the
+native deterministic encoder.  On the CPU the kernel's wrapper runs its
+plain PyTorch version; everything is exact (bytes and uint32 CRCs,
+tolerance 0), inputs seeded through numpy."""
+import numpy as np
+import pytest
+import torch
+
+from librdkafka_tpu.models import codec_step as jax_step
+from librdkafka_tpu.ops import lz4_jax
+from librdkafka_tpu_torch.models import codec_step as port_step
+from librdkafka_tpu_torch.ops import cpu as native
+from librdkafka_tpu_torch.ops import lz4_torch
+from librdkafka_tpu_torch.ops.packing import (FrameBlob, lz4f_frame,
+                                              pad_right)
+from librdkafka_tpu_torch.utils.crc import crc32c
+
+from test_0017_codecs import CORPORA, IDS
+
+
+def _rows(blocks, N):
+    data, lens = pad_right(blocks, N)
+    return data, lens, torch.from_numpy(data), torch.from_numpy(lens)
+
+
+def _port_blocks(blocks):
+    return lz4_torch.lz4_block_compress_many(blocks, device="cpu")
+
+
+@pytest.mark.parametrize("name", IDS)
+def test_reference_equals_jax_and_native_on_corpora(name):
+    block = CORPORA[name][:65536]
+    got, = _port_blocks([block])
+    assert got == native.lz4_block_compress(block)
+    assert got == lz4_jax.lz4_block_compress_many([block])[0]
+
+
+def test_reference_mixed_sizes_and_runs():
+    rng = np.random.default_rng(11)
+    blocks = [rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+              for n in (0, 1, 12, 13, 100, 5000, 65536)]
+    blocks += [b"z" * n for n in (15, 300, 65536)]
+    got = _port_blocks(blocks)
+    assert got == [native.lz4_block_compress(b) for b in blocks]
+    assert got == lz4_jax.lz4_block_compress_many(blocks)
+    # the edges: a block under 13 bytes is one token plus literals, and
+    # an empty one the single byte 0x00
+    assert got[0] == b"\x00"
+    assert got[2] == bytes([12 << 4]) + blocks[2]
+
+
+@pytest.mark.parametrize("N", [4096, 65536])
+def test_fused_outputs_equal_jax_fused(N):
+    """(comp, olen, crc_comp, crc_raw) of with_crc="both" against the JAX
+    package's fused compress→CRC launch (_fused_for), row for row."""
+    rng = np.random.default_rng(N)
+    lens = [0, 1, 13, N // 3, N - 1, N]
+    blocks = [rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+              if i % 2 else (b"abc%d" % i * N)[:n]
+              for i, n in enumerate(lens)]
+    data, lns, d, ln = _rows(blocks, N)
+    comp, olen, cc, cr = lz4_torch.lz4_rows(d, ln, "both")
+    try:
+        j_comp, j_olen, j_cc, j_cr = (np.asarray(x) for x in
+                                      lz4_jax._fused_for(N)(data, lns))
+    finally:
+        lz4_jax.release_device_kernels()    # engine-owned in the package
+    assert np.array_equal(comp.numpy(), j_comp)
+    assert np.array_equal(olen.numpy(), j_olen)
+    assert cc.tolist() == j_cc.astype(np.int64).tolist()
+    assert cr.tolist() == j_cr.astype(np.int64).tolist()
+    for i, b in enumerate(blocks):
+        want = native.lz4_block_compress(b)
+        assert comp[i, :olen[i]].numpy().tobytes() == want
+        assert not comp[i, olen[i]:].any()
+        assert int(cc[i]) == crc32c(want) and int(cr[i]) == crc32c(b)
+
+
+@pytest.mark.parametrize("mode", ["none", "raw", "both"])
+def test_with_crc_modes(mode):
+    rng = np.random.default_rng(7)
+    blocks = [(b"mode-%s " % mode.encode()) * 50,
+              rng.integers(0, 256, 700, dtype=np.uint8).tobytes(), b""]
+    _, _, d, ln = _rows(blocks, 1024)
+    comp, olen, cc, cr = lz4_torch.lz4_rows(d, ln, mode)
+    assert comp.shape == (3, 1024 + 1024 // 255 + 16)
+    assert olen.dtype == torch.int32
+    assert (cc is not None) == (mode == "both")
+    assert (cr is not None) == (mode != "none")
+    if cr is not None:
+        assert cr.tolist() == [crc32c(b) for b in blocks]
+    if cc is not None:
+        assert cc.tolist() == [crc32c(native.lz4_block_compress(b))
+                               for b in blocks]
+
+
+def test_wrapper_checks_and_devices(monkeypatch):
+    d = torch.zeros((2, 64), dtype=torch.uint8)
+    ln = torch.tensor([3, 64], dtype=torch.int32)
+    with pytest.raises(ValueError):
+        lz4_torch.lz4_rows(d.to(torch.int32), ln)
+    with pytest.raises(ValueError):
+        lz4_torch.lz4_rows(torch.zeros((2, 70), dtype=torch.uint8), ln)
+    with pytest.raises(ValueError):
+        lz4_torch.lz4_rows(d, ln.to(torch.int64))
+    with pytest.raises(ValueError):
+        lz4_torch.lz4_rows(d, ln, "crc")
+    with pytest.raises(ValueError):
+        lz4_torch.lz4_rows_reference(d, torch.tensor([3, 65],
+                                                     dtype=torch.int32))
+    with pytest.raises(ValueError):          # neither CPU nor CUDA
+        lz4_torch.lz4_rows(d.to("meta"), ln.to("meta"))
+    # the entry point's default device is the card: no silent CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        lz4_torch.lz4_block_compress_many([b"x" * 100])
+    before = lz4_torch.launches
+    lz4_torch.lz4_block_compress_many([b"x" * 100], device="cpu")
+    assert lz4_torch.launches == before      # the plain version: no launch
+
+
+def test_plan_lz4_layout():
+    lens = [0, 5, 65536, 70_000, 17]
+    plan = lz4_torch.plan_lz4(lens)
+    assert plan.spans == [(0, 0), (0, 1), (1, 1), (2, 2), (4, 1)]
+    assert plan.lens.tolist() == [5, 65536, 65536, 70_000 - 65536, 17]
+    assert (plan.row_offs % 16 == 0).all()
+    # each buffer starts 16-byte aligned; its blocks are back to back
+    assert plan.row_offs.tolist() == [0, 16, 16 + 65536, 16 + 2 * 65536,
+                                      16 + 65536 + 70_000]
+    assert plan.N == 65536
+    assert plan.flat_bytes == 16 + 65536 + 70_000 + 32
+    assert plan.nbytes == plan.flat_bytes + 8 * 5 + 4 * 6
+
+
+def test_warm_registry_cpu():
+    lz4_torch.release()
+    assert lz4_torch.device_kernel_count() == 0
+    assert not lz4_torch.kernel_ready("cpu")
+    assert lz4_torch.ready_kernel("cpu") is None
+    lz4_torch.warm_kernel("cpu")
+    assert lz4_torch.kernel_ready("cpu")
+    assert lz4_torch.ready_kernel("cpu") is lz4_torch.lz4_rows
+    assert lz4_torch.warm_bucket_count("cpu") == 1
+    assert lz4_torch.device_kernel_count() == 1
+    lz4_torch.release_device_kernels()
+    assert lz4_torch.device_kernel_count() == 0
+
+
+# -------------------------------------------------- frames (test_0135) --
+
+def test_frameblob_region_crc_folds_exactly():
+    rng = np.random.default_rng(1)
+    raws = [rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+            for n in (100, 65536, 7)]
+    bodies = []
+    for raw in raws:
+        comp = native.lz4_block_compress(raw)
+        bodies.append((comp, crc32c(comp), raw, crc32c(raw)))
+    blob = lz4f_frame(bodies)
+    assert isinstance(blob, FrameBlob)
+    for prefix in (b"", b"hdr", b"\x00" * 61):
+        assert blob.region_crc(prefix) == crc32c(prefix + bytes(blob))
+
+
+def test_lz4f_frame_matches_native_deterministic():
+    """Frames assembled from the kernel's rows (store-raw rule included)
+    equal the native deterministic encoder's, empty frame too."""
+    assert bytes(lz4f_frame([])) == native.lz4f_compress_many(
+        [b""], deterministic=True)[0]
+    rng = np.random.default_rng(3)
+    buf = (b"frame " * 20_000) + rng.integers(0, 256, 70_000,
+                                              dtype=np.uint8).tobytes()
+    blocks = [buf[i:i + 65536] for i in range(0, len(buf), 65536)]
+    comp = _port_blocks(blocks)
+    blob = lz4f_frame([(c, crc32c(c), b, crc32c(b))
+                       for c, b in zip(comp, blocks)])
+    assert bytes(blob) == native.lz4f_compress_many(
+        [buf], deterministic=True)[0]
+    assert blob.region_crc() == crc32c(bytes(blob))
+
+
+# ------------------------------------------------------ codec step (I) --
+
+def test_batched_codec_step_equals_jax():
+    import jax
+    data, lens = port_step.example_inputs()
+    j_data, j_lens = jax_step.example_inputs()
+    assert np.array_equal(data, j_data) and np.array_equal(lens, j_lens)
+    j_out, j_olen, j_crc = (np.asarray(x) for x in jax.jit(
+        jax_step.batched_codec_step())(j_data, j_lens))
+    out, olen, crc = port_step.batched_codec_step()(
+        torch.from_numpy(data), torch.from_numpy(lens))
+    assert np.array_equal(out.numpy(), j_out)
+    assert np.array_equal(olen.numpy(), j_olen)
+    assert crc.tolist() == j_crc.astype(np.int64).tolist()
+
+
+def test_pipelined_codec_step_through_engine():
+    from librdkafka_tpu_torch.ops.engine import AsyncOffloadEngine
+    eng = AsyncOffloadEngine(devices=["cpu"])
+    try:
+        submit = port_step.pipelined_codec_step(eng, 1024, 4, device="cpu")
+        tickets = [submit(*port_step.example_inputs(1024, 4, seed))
+                   for seed in range(3)]
+        for seed, t in enumerate(tickets):
+            out, olen, crc = t.result(120)
+            data, _ = port_step.example_inputs(1024, 4, seed)
+            assert isinstance(out, np.ndarray)
+            assert crc.tolist() == [crc32c(r.tobytes()) for r in data]
+            assert [out[i, :olen[i]].tobytes() for i in range(4)] == [
+                native.lz4_block_compress(r.tobytes()) for r in data]
+    finally:
+        eng.close()
+    assert lz4_torch.device_kernel_count() == 0
