@@ -37,10 +37,13 @@ native CRC's, its host split, produce / verify msgs/s three ways,
 stage_latency, the busy share and a fresh process's time to an open
 route; (g) the governed defaults' route split.  A counted leg fails if a
 job of it went to the CPU.  Phase 5 drives the device compress route
-(the LZ4 kernel csrc/lz4_rows.cu with its CRC epilogue): (a) kernel ==
-plain version == the native deterministic encoder, with CRCs == the
-native crc32c, for each ``with_crc`` mode on a size sweep and on the main
-path's 1,024 blocks; (b) the synchronous route
+(the LZ4 kernel csrc/lz4_rows.cu with its CRC epilogue): first what the
+kernel's design depends on (CTAs per SM at 64 KB rows, at least 2;
+ptxas registers and spills, none; sequences per main-path block); (a)
+kernel == plain version == the native deterministic encoder, with CRCs
+== the native crc32c, for each ``with_crc`` mode on a size sweep with
+the kernel's edge rows and on the main path's 1,024 blocks; (b) the
+synchronous route
 ``GpuCodecProvider(lz4_force=True, pipeline_depth=0).compress_many`` ==
 the native deterministic frames; (c) ROUNDS pipelined produce rounds
 through ``submit_batches`` on ``GpuCodecProvider(compress_device=True,
@@ -50,7 +53,8 @@ from the frames' part CRCs); (d) two topics of unequal ``qos`` weight
 under saturation, the flood topic's job shed to the CPU encoder, exact;
 (e) close() with compress tickets in flight; (f) the LZ4 kernel's times in
 each ``with_crc`` mode beside its bound and its plain version's (the
-kernels line gives "both", the engine route's), the route's host split, the
+kernels line gives "both", the engine route's), the SM cycles of each of
+its stages (a diagnostic build), the route's host split, the
 bytes copied each way, produce msgs/s on the device route vs the CPU
 deterministic and default encoders, and the busy share; (g) one pass of
 the batched codec step (models/codec_step.py) through the engine.  A
@@ -1023,12 +1027,40 @@ def lz4_bound(lens, olen, mode: str = "both") -> tuple[float, str]:
 
 
 def lz4_sweep(rng) -> list[bytes]:
+    """Sizes and shapes, and the edge rows of the kernel's stages
+    (``lz4_torch.edge_rows``: segment borders, dense collisions, short
+    and unaligned rows, incompressible, all-equal, the farthest repeats,
+    a main-path tail)."""
     blocks = [b"", b"Z", b"x" * 12, b"abcdabcdabcda", b"kv-pair " * 128,
               b"ab" * 32767 + b"xy",
               rng.integers(0, 256, 3000, dtype=np.uint8).tobytes(),
               rng.integers(0, 4, 65536, dtype=np.uint8).tobytes(),
               rng.integers(0, 256, 65536, dtype=np.uint8).tobytes()]
-    return blocks + [b"z" * n for n in (15, 300, 65536)]
+    return (blocks + [b"z" * n for n in (15, 300, 65536)]
+            + lz4.edge_rows())
+
+
+def lz4_design(blocks) -> None:
+    """What the kernel's design depends on: CTAs per SM at 64 KB rows
+    (two, so a second row hides a chain's stalls), registers and spills
+    from ptxas, and how many sequences the main path's blocks parse
+    into (the chain's links), from the native encoder's output."""
+    k = lz4.ctas_per_sm(LZ4F_BLOCKSIZE)
+    print(f"phase 5: lz4_rows CTAs per SM at N = {LZ4F_BLOCKSIZE}: {k}")
+    check(k >= 2, f"lz4_rows fits {k} CTA(s) an SM at 64 KB rows, not 2")
+    props = [ln.strip() for ln in lz4.build_log.splitlines()
+             if "spill" in ln or "registers" in ln]
+    for ln in props:
+        print(f"  ptxas lz4_rows: {ln}")
+    if not props:
+        print("  ptxas lz4_rows: no report (the build was up to date)")
+    check(all(" 0 bytes spill stores" in ln for ln in props if "spill" in ln),
+          "ptxas reports spills for lz4_rows")
+    seqs = sorted(len(lz4.parse_sequences(native.lz4_block_compress(b)))
+                  for b in blocks)
+    print(f"  sequences per main-path block (native encoder, "
+          f"{len(seqs)} blocks): min {seqs[0]}, median "
+          f"{statistics.median(seqs)}, max {seqs[-1]}, total {sum(seqs)}")
 
 
 def lz4_kernel_check(rng, blocks_main) -> tuple[int, dict]:
@@ -1164,6 +1196,7 @@ def phase_lz4(cpu_p, work: dict, rng) -> dict:
     print(f"phase 5: main path {PARTITIONS} partitions x {RECORDS} x "
           f"{VALUE_SIZE} B lz4: {len(blocks)} blocks of <= 64 KB, "
           f"{sum(len(b) for b in bufs)} B per round")
+    lz4_design(blocks)
     max_err, main = lz4_kernel_check(rng, blocks)
     counted = {}
     det = DetProvider()
@@ -1262,6 +1295,12 @@ def phase_lz4(cpu_p, work: dict, rng) -> dict:
               f"{mode}: kernel {ms:.4f} ms (L2 flushed), {b2b:.4f} ms back "
               f"to back; bound {bms:.5f} ms ({by}); plain version "
               f"{plain:.3f} ms")
+    clk = lz4.stage_clocks(d, ln, "both")
+    tot = sum(clk[k] for k in lz4.STAGES)
+    print(f"  lz4_rows stage clocks (diagnostic build, \"both\", SM cycles "
+          f"a row, share): " + "; ".join(
+              f"{k} {v / len(lens):.0f} ({v / tot:.3f})"
+              for k, v in clk.items()))
     print("  compress route of one round, host clock ms: " + "; ".join(
         f"{k} {v:.4f}" for k, v in lz4_split(bufs).items()))
     t_prod = {"device compress": 0.0, "cpu deterministic": 0.0,

@@ -315,10 +315,11 @@ def crc_segments_reference(flat: torch.Tensor, offsets: torch.Tensor,
 
 # -------------------------------------------------------- CUDA kernel --
 
-def build_kernel(src: str, so: str) -> tuple[str, str]:
+def build_kernel(src: str, so: str, flags=()) -> tuple[str, str]:
     """nvcc one ``csrc/*.cu`` (with the shared ``crc_fold.cuh``) into
     ``so`` under build/librdkafka_tpu_torch/ when it is missing or older
-    than its sources; returns (so, nvcc's output, "" when up to date)."""
+    than its sources, with ``flags`` added to NVCC_FLAGS; returns (so,
+    nvcc's output, "" when up to date)."""
     newest = max(os.path.getmtime(src), os.path.getmtime(CU_HEADER))
     if os.path.exists(so) and os.path.getmtime(so) >= newest:
         return so, ""
@@ -326,7 +327,7 @@ def build_kernel(src: str, so: str) -> tuple[str, str]:
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, src],
+    res = subprocess.run([nvcc, *NVCC_FLAGS, *flags, "-o", tmp, src],
                          capture_output=True, text=True)
     log = res.stdout + res.stderr
     if res.returncode != 0:

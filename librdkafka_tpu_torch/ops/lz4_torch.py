@@ -92,6 +92,24 @@ def _hash(val: torch.Tensor) -> torch.Tensor:
     return ((lo + hi) & 0xFFFFFFFF) >> (32 - HASH_BITS)
 
 
+def sort_candidates(h: torch.Tensor) -> torch.Tensor:
+    """candidate[p] = the previous position of each row of ``h`` (B, L)
+    int64, L <= 2^17, with an equal value, else -1: one sort of the unique
+    composite keys (h << 17 | pos), as lz4_jax.py:83-90 takes it."""
+    B, L = h.shape
+    i64 = torch.int64
+    pos = torch.arange(L, dtype=i64, device=h.device).expand(B, L)
+    skey = torch.sort((h << 17) | pos, dim=1).values
+    order = skey & ((1 << 17) - 1)
+    h_sorted = skey >> 17
+    prev = torch.cat([torch.full((B, 1), -1, dtype=i64, device=h.device),
+                      order[:, :-1]], 1)
+    same = torch.cat([torch.zeros((B, 1), dtype=torch.bool, device=h.device),
+                      h_sorted[:, 1:] == h_sorted[:, :-1]], 1)
+    return torch.zeros((B, L), dtype=i64, device=h.device).scatter_(
+        1, order, torch.where(same, prev, -1))
+
+
 def _compress_rows(data: torch.Tensor, lens: torch.Tensor):
     """``_lz4_block_one`` (lz4_jax.py:63-196) over rows at once: (B, N)
     uint8 right-padded, lens (B,) → ((B, C) uint8, (B,) int64).  Every
@@ -111,19 +129,7 @@ def _compress_rows(data: torch.Tensor, lens: torch.Tensor):
 
     val = at(pos) | (at(pos + 1) << 8) | (at(pos + 2) << 16) \
         | (at(pos + 3) << 24)
-    h = _hash(val)
-
-    # candidate[p]: the previous position with an equal hash, from one sort
-    # of unique composite keys (hash << 17 | pos)
-    skey = torch.sort((h << 17) | pos, dim=1).values
-    order = skey & ((1 << 17) - 1)
-    h_sorted = skey >> 17
-    prev = torch.cat([torch.full((B, 1), -1, dtype=i64, device=dev),
-                      order[:, :-1]], 1)
-    same = torch.cat([torch.zeros((B, 1), dtype=torch.bool, device=dev),
-                      h_sorted[:, 1:] == h_sorted[:, :-1]], 1)
-    cand = torch.zeros((B, N), dtype=i64, device=dev).scatter_(
-        1, order, torch.where(same, prev, -1))
+    cand = sort_candidates(_hash(val))
     valid = ((cand >= 0) & (pos - cand <= 65535)
              & (torch.gather(val, 1, cand.clamp(0, N - 1)) == val)
              & (pos + 12 <= n))
@@ -268,7 +274,229 @@ def lz4_rows_reference(data: torch.Tensor, lens: torch.Tensor,
     return comp, olen.to(torch.int32), crc_comp, crc_raw
 
 
+# ------------------------------------- the kernel's decomposition, plain --
+# csrc/lz4_rows.cu computes the candidates off the serial parse (stage 2)
+# and walks the chain read-only (stage 3).  These two functions are that
+# decomposition in plain torch / numpy, for the tests only: the kernel's
+# path never calls them.
+
+def _segment_len(P: int, segments: int) -> int:
+    """The kernel's segment length: ceil(P / S) rounded up to 32."""
+    return (-(-P // segments) + 31) & ~31
+
+
+def segment_candidates(data: torch.Tensor, lens: torch.Tensor,
+                       segments: int):
+    """Stage 2 of the kernel: every position's candidate through S segment
+    tables and the prefix-max fix-up.
+
+    data (B, N) uint8, lens (B,).  The positions P = [0, n - 11) that can
+    start a match are cut into ``segments`` contiguous segments of
+    :func:`_segment_len`.  A position's candidate is its last earlier
+    position of the same hash in its own segment (the warp's walk; taken
+    here with one sort per row), else the last position of the hash in the
+    nearest earlier segment that has one: the exclusive prefix max over
+    the segment tables T[s, h] = 1 + the last position of hash h in
+    segment s (0 empty).  Returns (cand (B, N) int64, -1 where none or
+    outside P; valid (B, N) bool: a candidate with an equal 4-byte prefix
+    at distance <= 65535)."""
+    B, N = data.shape
+    i64 = torch.int64
+    cand = torch.full((B, N), -1, dtype=i64)
+    valid = torch.zeros((B, N), dtype=torch.bool)
+    for b in range(B):
+        P = max(0, int(lens[b]) - 11)
+        if P == 0:
+            continue
+        seg = _segment_len(P, segments)
+        d = data[b, :P + 3].to(i64)
+        val = d[:P] | (d[1:P + 1] << 8) | (d[2:P + 2] << 16) \
+            | (d[3:P + 3] << 24)
+        h = _hash(val)
+        pos = torch.arange(P, dtype=i64)
+        sid = pos // seg
+        inseg = sort_candidates(((sid << 12) | h).view(1, P)).view(P)
+        tables = torch.zeros(segments * (1 << HASH_BITS), dtype=i64)
+        tables.scatter_reduce_(0, (sid << 12) | h, pos + 1, "amax")
+        tables = tables.view(segments, 1 << HASH_BITS)
+        prefix = torch.cat([torch.zeros((1, 1 << HASH_BITS), dtype=i64),
+                            torch.cummax(tables, 0).values[:-1]])
+        c = torch.where(inseg >= 0, inseg, prefix[sid, h] - 1)
+        cand[b, :P] = c
+        valid[b, :P] = ((c >= 0) & (pos - c <= 65535)
+                        & (val[c.clamp(min=0)] == val))
+    return cand, valid
+
+
+def _walk(row, n: int, vpos, cands, p: int, end: int, links=None):
+    """The chain from state p while p < end (for at most ``links``
+    sequences): its sequences (v, distance, mlen), the states it passes
+    below end (p, then each match's end) and the state it stops in (>= end
+    at the end: a state with no valid position before end is the state
+    end)."""
+    seqs, states = [], []
+    while p < end and (links is None or len(seqs) < links):
+        states.append(p)
+        i = int(np.searchsorted(vpos, p))
+        if i == len(vpos) or vpos[i] >= end:
+            return seqs, states, end
+        v = int(vpos[i])
+        c = int(cands[v])
+        mmax = min(MAXMATCH, n - 5 - v)
+        neq = np.flatnonzero(row[c + MINMATCH:c + mmax]
+                             != row[v + MINMATCH:v + mmax])
+        mlen = MINMATCH + int(neq[0]) if len(neq) else mmax
+        seqs.append((v, v - c, mlen))
+        p = v + mlen
+    return seqs, states, p
+
+
+def chain_walk(data: torch.Tensor, lens: torch.Tensor, cand: torch.Tensor,
+               valid: torch.Tensor, walkers: int = 8):
+    """Stage 3 and 4 of the kernel over :func:`segment_candidates`' output.
+
+    The chain (from p, the next valid position v >= p, its match length
+    capped at min(273, n - 5 - v), p = v + mlen; no table is written) is
+    walked from the start of each of ``walkers`` segments of the positions
+    at once, each walk to its segment's end; then the joins, in order: the
+    true chain enters segment w at e (segment 0's walk is the true chain);
+    where e is a state of w's walk, that walk from e on is the true chain,
+    else the chain is walked on from e to the next such state or the
+    segment's end.  Then the sequences' bytes at the running sum of their
+    sizes, and the last literal run.  Returns (comp (B, C) uint8 zeroed
+    past olen, olen (B,) int32, sequences (B,) int64) as
+    :func:`lz4_rows_reference` lays them out."""
+    B, N = data.shape
+    C = _bound(N)
+    comp = torch.zeros((B, C), dtype=torch.uint8)
+    olen = torch.zeros((B,), dtype=torch.int32)
+    nseq = torch.zeros((B,), dtype=torch.int64)
+    rows, cands, valids = data.numpy(), cand.numpy(), valid.numpy()
+
+    def length(out: bytearray, L: int) -> None:
+        if L >= 15:
+            out += b"\xff" * ((L - 15) // 255) + bytes([(L - 15) % 255])
+
+    for b in range(B):
+        n = int(lens[b])
+        P = max(0, n - 11)
+        row = rows[b, :n]
+        vpos = np.flatnonzero(valids[b, :P])
+        cseg = _segment_len(P, walkers)
+        bounds = [(min(P, w * cseg), min(P, min(P, w * cseg) + cseg))
+                  for w in range(walkers)]
+        walks = [_walk(row, n, vpos, cands[b], cb, ce) for cb, ce in bounds]
+        seqs, _, e = walks[0]
+        seqs = list(seqs)
+        for (_, ce), (wseqs, states, wexit) in zip(bounds[1:], walks[1:]):
+            states = set(states)
+            while e < ce:
+                if e in states:
+                    seqs += [q for q in wseqs if q[0] >= e]
+                    e = wexit
+                    break
+                link, _, e = _walk(row, n, vpos, cands[b], e, ce, 1)
+                seqs += link
+        out = bytearray()
+        anchor = 0
+        for v, d, mlen in seqs:
+            lit, m = v - anchor, mlen - MINMATCH
+            out.append((min(lit, 15) << 4) | min(m, 15))
+            length(out, lit)
+            out += row[anchor:v].tobytes()
+            out += d.to_bytes(2, "little")
+            length(out, m)
+            anchor = v + mlen
+        nseq[b] = len(seqs)
+        lit = n - anchor
+        out.append(min(lit, 15) << 4)
+        length(out, lit)
+        out += row[anchor:].tobytes()
+        comp[b, :len(out)] = torch.frombuffer(out, dtype=torch.uint8)
+        olen[b] = len(out)
+    return comp, olen, nseq
+
+
+def edge_rows(seed: int = 5) -> list[bytes]:
+    """Blocks at the edges of the kernel's stages (seeded): repeats across
+    the borders of 4 segments (a 300-byte chunk and its copies on zeros,
+    each copy's candidates in the nearest earlier segment that has them,
+    some across an empty one); dense hash collisions (2-4 symbols, 14,000+
+    sequences: past the sequences kept in shared memory); rows shorter
+    than 13 bytes; lengths that are no multiple of 16 or of any segment
+    count; incompressible 64 KB (no sequence, the widest output);
+    all-equal bytes (241 capped matches); a two-byte period; a repeat at
+    the largest distances a 64 KB block allows (65,520 and 65,524 match;
+    65,532 may not: its position is past n - 12); and a 9,536 B tail of
+    JSON records like the main path's."""
+    rng = np.random.default_rng(seed)
+
+    def rand(n, hi=256):
+        return rng.integers(0, hi, n, dtype=np.uint8)
+
+    cross = np.zeros(65536, np.uint8)
+    cross[1000:1300] = rand(300) | 1
+    for at in (16330, 40000, 49100):
+        cross[at:at + 300] = cross[1000:1300]
+    far = []
+    for d in (65520, 65524, 65532):
+        row = np.zeros(65536, np.uint8)
+        row[:16] = rand(16) | 1
+        row[d:] = row[:65536 - d]
+        far.append(row.tobytes())
+    rec = (b'{"seq": %07d, "user": "u%05d", "event": "click", '
+           b'"props": "abcdefghijklmnopqrstuvwxyz0123456789"}')
+    tail = b"".join((rec % (i, i % 1000) * 11)[:1024] for i in range(10))
+    return ([cross.tobytes(), rand(65536, 4).tobytes(),
+             rand(65531, 3).tobytes()]
+            + [(b"abc" * 5)[:k] for k in (11, 12, 13)]
+            + [rand(n, 5).tobytes() for n in (33, 1007, 4133)]
+            + [rand(65536).tobytes(), b"\x07" * 65536,
+               b"ab" * 32767 + b"xy"]
+            + far + [tail[:9536]])
+
+
+def parse_sequences(block: bytes) -> list[tuple[int, int, int]]:
+    """The sequences of one LZ4 block, from its token stream: (literal
+    length, offset, match length) each; the last literal run is not
+    one."""
+    def length(i, L):
+        if L == 15:
+            while True:
+                x = block[i]
+                i += 1
+                L += x
+                if x != 255:
+                    break
+        return i, L
+
+    i, out = 0, []
+    while i < len(block):
+        tok = block[i]
+        i, lit = length(i + 1, tok >> 4)
+        i += lit
+        if i >= len(block):            # the last literal run
+            break
+        off = block[i] | block[i + 1] << 8
+        i, m = length(i + 2, tok & 15)
+        out.append((lit, off, m + MINMATCH))
+    return out
+
+
 # -------------------------------------------------------- CUDA kernel --
+
+def _bind(so: str) -> ctypes.CDLL:
+    L = ctypes.CDLL(so)
+    vp = ctypes.c_void_p
+    L.lz4_rows_launch.argtypes = [vp] * 11 + [
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, vp]
+    L.lz4_rows_launch.restype = ctypes.c_int
+    L.lz4_rows_ctas_per_sm.argtypes = [ctypes.c_int]
+    L.lz4_rows_ctas_per_sm.restype = ctypes.c_int
+    L.lz4_rows_scratch_bytes.argtypes = [ctypes.c_int64, ctypes.c_int]
+    L.lz4_rows_scratch_bytes.restype = ctypes.c_int64
+    return L
+
 
 def _kernel_lib() -> ctypes.CDLL:
     global _lib, build_log
@@ -276,44 +504,59 @@ def _kernel_lib() -> ctypes.CDLL:
         if _lib is None:
             so, log = _crc.build_kernel(CU_SRC, SO)
             build_log = log or build_log
-            L = ctypes.CDLL(so)
-            vp = ctypes.c_void_p
-            L.lz4_rows_launch.argtypes = [vp] * 10 + [
-                ctypes.c_int64, ctypes.c_int, ctypes.c_int, vp]
-            L.lz4_rows_launch.restype = ctypes.c_int
-            _lib = L
+            _lib = _bind(so)
     return _lib
 
 
+def ctas_per_sm(N: int = LZ4F_BLOCKSIZE, device=None) -> int:
+    """CTAs of the kernel resident on one SM of ``device`` (default: the
+    current card) at row width ``N`` (cudaOccupancyMaxActiveBlocksPer
+    Multiprocessor)."""
+    lib = _kernel_lib()
+    with torch.cuda.device(_crc.resolve_device(device)):
+        k = lib.lz4_rows_ctas_per_sm(N)
+    if k < 0:
+        raise RuntimeError(f"lz4_rows_ctas_per_sm({N}): cudaError {-k}")
+    return k
+
+
 def _fire(stream, data_ptr, row_offs_ptr, lens_ptr, comp_ptr, cursor_ptr,
-          offs_ptr, olen_ptr, cc_ptr, cr_ptr, B: int, N: int) -> None:
+          offs_ptr, olen_ptr, cc_ptr, cr_ptr, B: int, N: int,
+          lib=None) -> None:
     """One kernel launch on ``stream``, serialized with the card's other
     launches of the port (crc32c_torch.serialized_launch: the CRC grid is
-    cooperative and must not share the card)."""
-    lib = _kernel_lib()
+    cooperative and must not share the card).  The launch's scratch (the
+    candidates' distances and the sequence tables, one slice per CTA of
+    the persistent grid) is allocated on ``stream`` and given back to the
+    caching allocator after the launch is queued: stream order keeps it
+    the kernel's until the kernel ends.  ``lib``: another build of the
+    kernel (the stage clocks'), whose launches are not counted."""
+    counted = lib is None
+    lib = lib or _kernel_lib()
     consts = _crc._device_consts(stream.device).data_ptr()
+    with torch.cuda.device(stream.device):
+        nbytes = lib.lz4_rows_scratch_bytes(B, N)
+    if nbytes < 0:
+        raise RuntimeError(f"lz4_rows_scratch_bytes: cudaError {-nbytes}")
+    with torch.cuda.stream(stream):
+        scratch = torch.empty((nbytes,), dtype=torch.uint8,
+                              device=stream.device)
     _crc.serialized_launch(
         stream, lambda: lib.lz4_rows_launch(
             data_ptr, row_offs_ptr, lens_ptr, comp_ptr, cursor_ptr, offs_ptr,
-            olen_ptr, cc_ptr, cr_ptr, consts, B, N, _bound(N),
-            stream.cuda_stream), "lz4_rows")
-    _count(launched=1)
+            olen_ptr, cc_ptr, cr_ptr, consts, scratch.data_ptr(), B, N,
+            _bound(N), stream.cuda_stream), "lz4_rows")
+    if counted:
+        _count(launched=1)
 
 
-def lz4_rows(data: torch.Tensor, lens: torch.Tensor, with_crc: str = "none"):
-    """LZ4-compress each row ``data[b, :lens[b]]``; returns (comp (B, C)
-    uint8 zeroed past olen, olen (B,) int32, crc_comp, crc_raw) as
-    :func:`lz4_rows_reference` does.  A CUDA ``data`` launches
-    csrc/lz4_rows.cu on torch's current stream (lens outside [0, N] are
-    clamped there); a CPU ``data`` runs the plain version."""
-    B, N = _check(data, lens, with_crc)
-    if data.device.type == "cpu":
-        return lz4_rows_reference(data, lens, with_crc)
-    if data.device.type != "cuda":
-        raise ValueError(f"lz4_rows: unsupported device {data.device}")
+def _launch_rows(data, lens, with_crc: str, lib=None):
+    B, N = data.shape
     data, lens = data.contiguous(), lens.contiguous()
     dev = data.device
-    comp = torch.empty((B, _bound(N)), dtype=torch.uint8, device=dev)
+    # 16 bytes of slack: the CRC epilogue reads whole 16-byte chunks
+    comp = torch.empty((B * _bound(N) + 16,), dtype=torch.uint8,
+                       device=dev)[:B * _bound(N)].view(B, _bound(N))
     olen = torch.empty((B,), dtype=torch.int32, device=dev)
     cc = (torch.empty((B,), dtype=torch.int64, device=dev)
           if with_crc == "both" else None)
@@ -323,8 +566,65 @@ def lz4_rows(data: torch.Tensor, lens: torch.Tensor, with_crc: str = "none"):
         _fire(torch.cuda.current_stream(dev), data.data_ptr(), None,
               lens.data_ptr(), comp.data_ptr(), None, None, olen.data_ptr(),
               None if cc is None else cc.data_ptr(),
-              None if cr is None else cr.data_ptr(), B, N)
+              None if cr is None else cr.data_ptr(), B, N, lib)
     return comp, olen, cc, cr
+
+
+def lz4_rows(data: torch.Tensor, lens: torch.Tensor, with_crc: str = "none"):
+    """LZ4-compress each row ``data[b, :lens[b]]``; returns (comp (B, C)
+    uint8 zeroed past olen, olen (B,) int32, crc_comp, crc_raw) as
+    :func:`lz4_rows_reference` does.  A CUDA ``data`` launches
+    csrc/lz4_rows.cu on torch's current stream (lens outside [0, N] are
+    clamped there); a CPU ``data`` runs the plain version."""
+    _check(data, lens, with_crc)
+    if data.device.type == "cpu":
+        return lz4_rows_reference(data, lens, with_crc)
+    if data.device.type != "cuda":
+        raise ValueError(f"lz4_rows: unsupported device {data.device}")
+    return _launch_rows(data, lens, with_crc)
+
+
+#: the kernel's stages, in the order of its stage clocks
+STAGES = ("stage row + empty tables", "candidates (segment walks)",
+          "fix-up + bitmask", "chain (a walk a segment)",
+          "chain joins (warp 0)", "emission", "CRC epilogue")
+SO_CLOCKS = os.path.join(_crc.BUILD_DIR, "liblz4_rows_clocks.so")
+_clocks_lib = None
+
+
+def stage_clocks(data: torch.Tensor, lens: torch.Tensor,
+                 with_crc: str = "both") -> dict:
+    """SM cycles of each of the kernel's :data:`STAGES` in one launch on
+    CUDA rows, summed over every CTA's rows (thread 0's ``clock64``
+    between the barriers that end the stages), from a diagnostic build of
+    csrc/lz4_rows.cu with ``-DLZ4_STAGE_CLOCKS`` (built at first use).
+    The diagnostic launch is not counted in :data:`launches`."""
+    global _clocks_lib
+    _check(data, lens, with_crc)
+    if data.device.type != "cuda":
+        raise ValueError("stage_clocks needs CUDA rows")
+    with _lib_lock:
+        if _clocks_lib is None:
+            so, _ = _crc.build_kernel(CU_SRC, SO_CLOCKS,
+                                      ("-DLZ4_STAGE_CLOCKS",))
+            L = _bind(so)
+            L.lz4_rows_stage_clocks.argtypes = [ctypes.c_void_p]
+            L.lz4_rows_stage_clocks.restype = ctypes.c_int
+            _clocks_lib = L
+    out = (ctypes.c_ulonglong * len(STAGES))()
+
+    def read_and_zero():
+        err = _clocks_lib.lz4_rows_stage_clocks(out)
+        if err:
+            raise RuntimeError(f"lz4_rows_stage_clocks: cudaError {err}")
+
+    with torch.cuda.device(data.device):
+        torch.cuda.synchronize()
+        read_and_zero()
+        _launch_rows(data, lens, with_crc, _clocks_lib)
+        torch.cuda.synchronize()
+        read_and_zero()
+    return dict(zip(STAGES, list(out)))
 
 
 def lz4_block_compress_many(blocks: list[bytes], device=None) -> list[bytes]:
@@ -461,7 +761,7 @@ def launch_lz4(slot: "_crc.Slot", plan: Lz4Plan,
         lane.reserve(plan.nbytes, 0, 0)
         lane.flat[:plan.nbytes].copy_(slot.host[:plan.nbytes],
                                       non_blocking=True)
-        comp = torch.empty((plan.cap,), dtype=torch.uint8, device=dev)
+        comp = torch.empty((plan.cap + 16,), dtype=torch.uint8, device=dev)
         meta = torch.zeros((plan.out_words,), dtype=torch.int64, device=dev)
     _count(h2d=plan.nbytes)
     base = lane.flat.data_ptr()

@@ -6,7 +6,8 @@ device (synchronous route), the async offload engine on the card
 launch, one launch per round, the H2D bytes, close with tickets in
 flight, first launches from two threads), and the LZ4 kernel
 (csrc/lz4_rows.cu) against its plain version and the native encoder in
-every ``with_crc`` mode, beside a CRC launch on another stream, and
+every ``with_crc`` mode (with the edge rows of its stages), its two CTAs
+an SM and its stage clocks, beside a CRC launch on another stream, and
 through the engine's compress route.  Marked ``gpu``; each skips on a
 host without CUDA.  On a card (tests/conftest.py imports jax, which the
 GPU host lacks):
@@ -252,7 +253,8 @@ def _lz4_sweep():
                                                   dtype=np.uint8).tobytes(),
               rng.integers(0, 4, 65536, dtype=np.uint8).tobytes()]
     blocks += [b"z" * n for n in (15, 300, 65536)]
-    return blocks
+    from librdkafka_tpu_torch.ops import lz4_torch
+    return blocks + lz4_torch.edge_rows()
 
 
 def _main_path_blocks():
@@ -295,6 +297,23 @@ def test_lz4_kernel_equals_plain_and_native(card, mode, shape):
         assert got[2].cpu().tolist() == [native.crc32c(w) for w in want]
     if mode != "none":
         assert got[3].cpu().tolist() == [native.crc32c(b) for b in blocks]
+
+
+def test_lz4_two_ctas_per_sm_and_stage_clocks(card):
+    """Two CTAs of 64 KB rows fit an SM; the stage-clock build computes
+    the same rows, every stage takes time, and its launch is not
+    counted."""
+    from librdkafka_tpu_torch.ops import lz4_torch
+    from librdkafka_tpu_torch.ops.packing import pad_right
+    assert lz4_torch.ctas_per_sm(65536) >= 2
+    blocks = _lz4_sweep()
+    data, lens = pad_right(blocks, 65536)
+    d, ln = torch.from_numpy(data).to(card), torch.from_numpy(lens).to(card)
+    before = lz4_torch.launches
+    clk = lz4_torch.stage_clocks(d, ln, "both")
+    assert lz4_torch.launches == before
+    assert list(clk) == list(lz4_torch.STAGES)
+    assert all(v > 0 for v in clk.values())
 
 
 def test_lz4_and_crc_launches_on_two_streams_do_not_wedge(card):

@@ -149,6 +149,103 @@ def test_warm_registry_cpu():
     assert lz4_torch.device_kernel_count() == 0
 
 
+# ---------------------------------- the kernel's decomposition (stage 2-3) --
+# csrc/lz4_rows.cu finds every position's candidate through S segment
+# tables and a prefix-max fix-up, then walks the chain read-only; its CPU
+# model (segment_candidates, chain_walk) must give JAX's and native's
+# bytes for every segment count, on the corpora and the kernel's edge rows.
+
+_DECOMP = {}
+
+
+def _decomp_rows():
+    if not _DECOMP:
+        blocks = [CORPORA[k][:65536] for k in IDS] + lz4_torch.edge_rows()
+        _, _, d, ln = _rows(blocks, 65536)
+        _DECOMP.update(
+            blocks=blocks, d=d, ln=ln,
+            native=[native.lz4_block_compress(b) for b in blocks],
+            jax=lz4_jax.lz4_block_compress_many(blocks))
+    return _DECOMP
+
+
+@pytest.mark.parametrize("S", [1, 2, 4, 6, 8, 32])
+def test_segment_candidates_equal_sort(S):
+    """Every position that can start a match gets the candidate of the
+    sort formulation (_compress_rows, lz4_jax.py:83-90), and the same
+    valid bit."""
+    r = _decomp_rows()
+    d, ln = r["d"], r["ln"]
+    cand, valid = lz4_torch.segment_candidates(d, ln, S)
+    B, N = d.shape
+    pos = torch.arange(N, dtype=torch.int64).expand(B, N)
+    x = d.to(torch.int64)
+
+    def at(i):
+        return torch.gather(x, 1, i.clamp(0, N - 1))
+
+    val = at(pos) | (at(pos + 1) << 8) | (at(pos + 2) << 16) \
+        | (at(pos + 3) << 24)
+    want = lz4_torch.sort_candidates(lz4_torch._hash(val))
+    want_valid = ((want >= 0) & (torch.gather(val, 1, want.clamp(0, N - 1))
+                                 == val)
+                  & (pos + 12 <= ln.to(torch.int64).view(B, 1)))
+    for b, blk in enumerate(r["blocks"]):
+        P = max(0, len(blk) - 11)
+        assert torch.equal(cand[b, :P], want[b, :P]), b
+        assert (cand[b, P:] == -1).all()
+    assert torch.equal(valid, want_valid)
+
+
+@pytest.mark.parametrize("S", [1, 2, 4, 6, 8, 32])
+def test_chain_walk_equals_jax_and_native(S):
+    """S candidate segments, then S chain walks joined in order (S = 1 is
+    the serial walk; the kernel takes 6 and 8)."""
+    r = _decomp_rows()
+    cand, valid = lz4_torch.segment_candidates(r["d"], r["ln"], S)
+    comp, olen, nseq = lz4_torch.chain_walk(r["d"], r["ln"], cand, valid,
+                                            walkers=S)
+    for b in range(len(r["blocks"])):
+        got = comp[b, :olen[b]].numpy().tobytes()
+        assert got == r["native"][b], b
+        assert got == r["jax"][b], b
+        assert not comp[b, olen[b]:].any()
+        assert int(nseq[b]) == len(lz4_torch.parse_sequences(got))
+
+
+@pytest.mark.parametrize("mode", ["none", "both", "raw"])
+def test_edge_rows_reference_equals_native(mode):
+    """The plain version on the kernel's edge rows, every with_crc mode
+    (the card holds the kernel to it on the same rows)."""
+    blocks = lz4_torch.edge_rows()
+    _, _, d, ln = _rows(blocks, 65536)
+    comp, olen, cc, cr = lz4_torch.lz4_rows(d, ln, mode)
+    want = [native.lz4_block_compress(b) for b in blocks]
+    assert [comp[i, :olen[i]].numpy().tobytes()
+            for i in range(len(blocks))] == want
+    if cc is not None:
+        assert cc.tolist() == [crc32c(w) for w in want]
+    if cr is not None:
+        assert cr.tolist() == [crc32c(b) for b in blocks]
+
+
+def test_edge_rows_shapes():
+    """The edge rows hold what they are named for."""
+    blocks = lz4_torch.edge_rows()
+    outs = [native.lz4_block_compress(b) for b in blocks]
+    seqs = [lz4_torch.parse_sequences(o) for o in outs]
+    offs = [{off for _, off, _ in s} for s in seqs]
+    lens = [len(b) for b in blocks]
+    assert {15330, 23670, 9100} <= offs[0]     # copies across the borders
+    assert min(len(s) for s in seqs[1:3]) > 2048
+    assert min(lens) == 11 and 9536 in lens
+    assert any(n % 16 and n % 32 for n in lens)
+    assert max(len(o) for o in outs) == 65536 + (65536 - 15) // 255 + 2
+    assert 241 in [len(s) for s in seqs]          # all-equal: capped
+    assert 65520 in offs[-4] and 65524 in offs[-3]
+    assert not {65532, 65535} & offs[-2]
+
+
 # -------------------------------------------------- frames (test_0135) --
 
 def test_frameblob_region_crc_folds_exactly():
