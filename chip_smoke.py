@@ -58,8 +58,26 @@ its stages (a diagnostic build), the route's host split, the
 bytes copied each way, produce msgs/s on the device route vs the CPU
 deterministic and default encoders, and the busy share; (g) one pass of
 the batched codec step (models/codec_step.py) through the engine.  A
-counted leg of phase 5 fails if a job of it went to the CPU.  Any
-mismatch exits non-zero.
+counted leg of phase 5 fails if a job of it went to the CPU.  Phase 6
+drives the port's client through the entry points a user calls, at the
+shape of BASELINE.json config 5: ``Producer`` (idempotent, lz4, linger
+5 ms, default batch.num.messages and message.max.bytes) into one
+in-process mock broker with 64 partitions a topic, 64 x 4,800 records x
+1,024 B a repeat, three repeats a leg, then a ``Consumer`` with
+``compression.backend=gpu`` and ``check.crcs=true`` reading every record
+back through ticketed fetch verify on the card.  Legs: (a) the producer on
+the CPU provider, (b) on the GPU provider's CRC tickets, (c) with
+``gpu.compress.device=true`` (one LZ4 launch with its CRC epilogue a
+round); the GPU legs run ``gpu.governor=false``,
+``gpu.launch.min.batches=1`` and wait for the route to warm.  Every stored
+batch's CRC must equal the native crc32c, its lz4 frame the native
+encoder's (the deterministic one on leg c), its records and idempotence
+fields what was produced; the consumer must return each partition's
+records in order; a corrupted batch must raise CrcMismatch in the port's
+reader and reach the consumer as _BAD_MSG; the GPU legs must show launches
+and no CPU route.  It prints each leg's produce and consume msgs/s
+(median and spread of the three repeats) and its launch counts, which add
+to the kernels line.  Any mismatch exits non-zero.
 
 The last two lines of standard output are a ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -695,7 +713,7 @@ def engine_exact(cpu_p, rng) -> int:
         err = int(np.abs(ref.cpu().numpy() - outs[0].astype(np.int64)).max())
         check(err == 0, "an engine launch != the plain version on its "
               "staged inputs")
-        rings = eng.devices_snapshot()[0]["staging_bytes"]
+        rings = eng._lanes[0].staging.nbytes()
     finally:
         crc.launch_slot, crc.read_slot = real_launch, real_read
         eng.close()
@@ -1367,6 +1385,256 @@ def phase_lz4(cpu_p, work: dict, rng) -> dict:
             "max_err": max_err, **timing["both"]}
 
 
+# ---------------------------------------------------------------- phase 6 --
+
+P6_PARTS, P6_PER_PART, P6_REPEATS = PARTITIONS, 4800, 3
+#: the GPU legs' codec keys: every CRC group on the card, route warm first
+P6_GPU = {"gpu.governor": False, "gpu.launch.min.batches": 1}
+
+
+def p6_conf(backend: str, device: str, parts: int, extra=None) -> dict:
+    """Producer conf of a phase 6 leg: one in-process mock broker with
+    ``parts`` partitions a topic, idempotent, lz4, linger 5 ms, the
+    default batch.num.messages and message.max.bytes (about 960 records,
+    1 MB framed, a batch).  The producer queue holds one repeat whole."""
+    conf = {"bootstrap.servers": "", "test.mock.num.brokers": 1,
+            "test.mock.default.partitions": parts,
+            "enable.idempotence": True, "compression.codec": "lz4",
+            "linger.ms": 5, "queue.buffering.max.messages": 1_000_000,
+            "compression.backend": backend}
+    if backend == "gpu":
+        conf.update({"gpu.device": device, **P6_GPU, **(extra or {})})
+    return conf
+
+
+def p6_produce(p, topic: str, keys, vals) -> float:
+    """Every record of ``vals[partition][j]``, keyed by partition, with
+    explicit partitions, then flush(); msgs/s over produce() + flush()."""
+    produce = p.produce
+    n = sum(len(v) for v in vals)
+    t0 = time.perf_counter()
+    for j in range(len(vals[0])):
+        for i, k in enumerate(keys):
+            produce(topic, value=vals[i][j], key=k, partition=i)
+    left = p.flush(300)
+    dt = time.perf_counter() - t0
+    check(left == 0, f"phase 6 {topic}: flush() left {left} messages")
+    return n / dt
+
+
+def p6_check_stored(cluster, topic: str, keys, vals, det: bool) -> int:
+    """Every stored blob is a v2 lz4 batch whose CRC == the native crc32c
+    of its CRC region and whose frame == the native encoder's frame of
+    its records (the deterministic one for the device compress route);
+    the records are what was produced, in order; the idempotence fields
+    are one producer id and epoch, and base sequences that run on from
+    the records before them.  Returns the batch count."""
+    from librdkafka_tpu_torch.protocol.msgset import (iter_batches,
+                                                      parse_records_v2)
+    pids, nbatch = set(), 0
+    for i, k in enumerate(keys):
+        infos, frames, regions = [], [], []
+        for _base, blob in cluster.partition(topic, i).log:
+            for info, payload, full in iter_batches(blob):
+                check(info.magic == 2 and info.codec == "lz4",
+                      f"{topic}[{i}]: a batch is magic {info.magic} "
+                      f"codec {info.codec}")
+                infos.append(info)
+                frames.append(bytes(payload))
+                regions.append(bytes(full[V2_OF_Attributes:]))
+        check(native.crc32c_many(regions).tolist()
+              == [x.crc for x in infos], f"{topic}[{i}]: a batch CRC != "
+              "the native crc32c of its region")
+        raws = native.lz4f_decompress_many(frames, None)
+        enc = (det_frames(raws) if det
+               else native.lz4f_compress_many(raws))
+        check(enc == frames, f"{topic}[{i}]: an lz4 frame != the native "
+              f"{'deterministic' if det else 'default'} encoder's")
+        seq, got = 0, []
+        for info, raw in zip(infos, raws):
+            check(info.base_sequence == seq,
+                  f"{topic}[{i}]: base sequence {info.base_sequence} "
+                  f"after {seq} records")
+            seq += info.record_count
+            pids.add((info.producer_id, info.producer_epoch))
+            got.extend((r.key, r.value) for r in parse_records_v2(info, raw))
+        check(got == [(k, v) for v in vals[i]],
+              f"{topic}[{i}]: stored records != produced")
+        nbatch += len(infos)
+    check(len(pids) == 1 and next(iter(pids))[0] >= 0,
+          f"{topic}: producer id/epoch not one idempotent pair: {pids}")
+    return nbatch
+
+
+def p6_consume(c, topic: str, keys, vals) -> float:
+    """Assign every partition of ``topic`` from the beginning and read
+    it all back through the CRC-checking consumer; each partition's
+    (key, value, offset) sequence must be the produced one.  msgs/s from
+    assign() to the last record."""
+    from librdkafka_tpu_torch.client.consumer import TopicPartition
+    from librdkafka_tpu_torch.protocol.proto import OFFSET_BEGINNING
+    n = sum(len(v) for v in vals)
+    nxt = [0] * len(keys)
+    got = 0
+    t0 = time.perf_counter()
+    c.assign([TopicPartition(topic, i, OFFSET_BEGINNING)
+              for i in range(len(keys))])
+    deadline = time.monotonic() + 300
+    while got < n:
+        check(time.monotonic() < deadline,
+              f"phase 6 {topic}: consumed {got} of {n}")
+        for m in c.consume(min(10_000, n - got), 0.5):
+            check(m.error is None, f"phase 6 {topic}: {m.error}")
+            i, j = m.partition, nxt[m.partition]
+            check(j < len(vals[i]) and m.offset == j and m.key == keys[i]
+                  and m.value == vals[i][j],
+                  f"phase 6 {topic}[{i}]: record {j} out of order or "
+                  f"wrong (offset {m.offset})")
+            nxt[i] = j + 1
+            got += 1
+    return n / (time.perf_counter() - t0)
+
+
+def p6_corrupt(p, c, prov, errs: list, tag: str) -> None:
+    """A stored batch with one byte flipped: the port's reader through
+    the consumer's GPU provider raises CrcMismatch, and the consumer's
+    ticketed fetch verify reports _BAD_MSG and delivers nothing."""
+    from librdkafka_tpu_torch.client.consumer import TopicPartition
+    from librdkafka_tpu_torch.client.errors import Err
+    from librdkafka_tpu_torch.protocol.proto import OFFSET_BEGINNING
+    topic = f"p6-bad-{tag}"
+    for i in range(10):
+        p.produce(topic, value=b"corrupt-%02d " % i * 40, partition=0)
+    check(p.flush(60) == 0, f"{topic}: flush() did not drain")
+    part = p._rk.mock_cluster.partition(topic, 0)
+    base, blob = part.log[0]
+    bad = bytearray(blob)
+    bad[-5] ^= 0xFF
+    try:
+        submit_read(prov, [bytes(bad)]).result(120)
+        fail(f"{topic}: a flipped byte passed the GPU reader")
+    except CrcMismatch:
+        pass
+    part.log[0] = (base, bytes(bad))
+    c.assign([TopicPartition(topic, 0, OFFSET_BEGINNING)])
+    deadline = time.monotonic() + 30
+    while not errs and time.monotonic() < deadline:
+        m = c.poll(0.2)
+        check(m is None or m.error is not None,
+              f"{topic}: the corrupted batch was delivered")
+    check(any(e.code == Err._BAD_MSG for e in errs),
+          f"{topic}: the consumer reported {errs}, not _BAD_MSG")
+
+
+def p6_rates(xs) -> str:
+    med = statistics.median(xs)
+    return (f"median {med:.1f} msgs/s, spread {min(xs):.1f}-{max(xs):.1f} "
+            f"({(max(xs) - min(xs)) / med:.3f} of the median)")
+
+
+def p6_leg(tag: str, backend: str, device: str, extra, det: bool,
+           keys, vals, repeats: int) -> dict:
+    """One leg: a Producer on the mock, a GPU Consumer with check.crcs,
+    ``repeats`` topics of every record each.  Counts are zeroed after
+    both clients' routes are warm and read after the last consume."""
+    from librdkafka_tpu_torch import Consumer, Producer
+    parts = len(keys)
+    p = Producer(p6_conf(backend, device, parts, extra))
+    c = None
+    try:
+        pprov = p._rk.codec_provider
+        if backend == "gpu":
+            check(pprov.wait_warm(300), f"6{tag}: producer route not warm")
+        errs: list = []
+        c = Consumer({"bootstrap.servers":
+                      p._rk.mock_cluster.bootstrap_servers(),
+                      "group.id": f"p6-{tag}",
+                      "auto.offset.reset": "earliest", "check.crcs": True,
+                      "compression.backend": "gpu", "gpu.device": device,
+                      **P6_GPU, "error_cb": errs.append})
+        cprov = c._rk.codec_provider
+        check(cprov.wait_warm(300), f"6{tag}: consumer route not warm")
+        peng = getattr(pprov, "_engine", None)
+        p_launch0 = peng.stats["launches"] if peng is not None else 0
+        crc.launches = 0
+        lz4.launches = 0
+        topics = [f"p6{tag}-r{r}" for r in range(repeats)]
+        prod = [p6_produce(p, t, keys, vals) for t in topics]
+        crc_produce, lz4_produce = crc.launches, lz4.launches
+        cons = [p6_consume(c, t, keys, vals) for t in topics]
+        counts = {"crc_rows": crc.launches, "lz4_rows": lz4.launches}
+        pstats = json.loads(p._rk.stats.emit_json()).get("codec_engine")
+        cstats = json.loads(c._rk.stats.emit_json())["codec_engine"]
+        nbatch = sum(p6_check_stored(p._rk.mock_cluster, t, keys, vals, det)
+                     for t in topics)
+        check(cstats["launches"] > 0, f"6{tag}: consumer made no CRC launch")
+        no_cpu_route(cprov._engine, f"6{tag} consumer")
+        if backend == "gpu":
+            check(pstats is not None, f"6{tag}: no codec_engine in stats")
+            no_cpu_route(peng, f"6{tag} producer")
+            if pprov.compress_device:
+                comp = pstats["compress"]
+                check(comp["launches"] > 0 and comp["fused_crc"] > 0,
+                      f"6{tag}: compress route idle: {comp}")
+                no_cpu_compress(peng, f"6{tag} producer")
+                check(crc_produce == 0 and
+                      peng.stats["launches"] == p_launch0,
+                      f"6{tag}: {crc_produce} CRC launches for producer "
+                      "batches (the frames carry their CRCs)")
+                check(lz4_produce > 0, f"6{tag}: no LZ4 launch")
+            else:
+                check(pstats["launches"] > 0 and crc_produce > 0,
+                      f"6{tag}: producer made no CRC launch")
+                check(lz4_produce == 0, f"6{tag}: an LZ4 launch on the "
+                      "CRC-ticket route")
+        p6_corrupt(p, c, cprov, errs, tag)
+        n = parts * len(vals[0])
+        print(f"phase 6{tag}: {backend}"
+              f"{' + gpu.compress.device' if extra else ''}: {repeats} x "
+              f"{n} records x {len(vals[0][0])} B over {parts} idempotent "
+              f"partitions, {nbatch} batches exact (CRC, "
+              f"{'deterministic' if det else 'default'} lz4 frames, "
+              f"records, sequences), read back by a check.crcs GPU "
+              f"consumer; corrupted batch -> CrcMismatch and _BAD_MSG")
+        print(f"  produce {p6_rates(prod)}; consume {p6_rates(cons)}")
+        print(f"  launches: crc_rows {counts['crc_rows']} (producer "
+              f"{crc_produce}), lz4_rows {counts['lz4_rows']}; producer "
+              f"engine {pstats and {k: pstats[k] for k in ('launches', 'jobs', 'host_jobs')}}"
+              f"{pstats and ', compress ' + str({k: pstats['compress'][k] for k in ('launches', 'fused_crc')})}; "
+              f"consumer engine "
+              f"{ {k: cstats[k] for k in ('launches', 'jobs', 'host_jobs')} }")
+        return {"counts": counts, "produce": prod, "consume": cons}
+    finally:
+        if c is not None:
+            c.close()
+        p.close()
+
+
+def phase_client(device: str = "cuda", parts: int = P6_PARTS,
+                 per_part: int = P6_PER_PART,
+                 repeats: int = P6_REPEATS) -> dict:
+    """Phase 6: Producer -> mock broker -> Consumer(check.crcs) through
+    the port's entry points, three legs (6a the CPU provider, 6b the
+    CRC-ticket route, 6c the device compress route).  Returns the
+    kernels' launches summed over the GPU legs."""
+    flat = payloads(parts * per_part, VALUE_SIZE)
+    vals = [flat[i * per_part:(i + 1) * per_part] for i in range(parts)]
+    keys = [b"p%02d" % i for i in range(parts)]
+    print(f"phase 6: Producer -> mock -> Consumer(check.crcs), "
+          f"{parts} x {per_part} x {VALUE_SIZE} B lz4 = "
+          f"{parts * per_part} records a repeat, {repeats} repeats a leg")
+    t0 = time.perf_counter()
+    legs = [p6_leg("a", "cpu", device, None, False, keys, vals, repeats),
+            p6_leg("b", "gpu", device, None, False, keys, vals, repeats),
+            p6_leg("c", "gpu", device, {"gpu.compress.device": True}, True,
+                   keys, vals, repeats)]
+    print(f"phase 6: ok ({time.perf_counter() - t0:.1f} s, checks and "
+          f"warm starts included)")
+    # 6a's consumer is on the card too: every leg's launches count
+    return {k: sum(leg["counts"][k] for leg in legs)
+            for k in ("crc_rows", "lz4_rows")}
+
+
 def kernel_line(main: dict, timing: dict, max_err: int) -> dict:
     """The crc_rows entry at the main path's shape (its produce regions
     as packed segments)."""
@@ -1393,7 +1661,9 @@ def main() -> None:
     engine = phase_engine(cpu_p, gpu, work, rng)
     gpu.close()
     comp = phase_lz4(cpu_p, work, rng)
-    main_path["launches"] += engine["launches"]
+    client = phase_client()
+    main_path["launches"] += engine["launches"] + client["crc_rows"]
+    comp["launches"] += client["lz4_rows"]
     line = kernel_line(main_path, timing, max(max_err, engine["max_err"]))
     lz4_line = {"name": "lz4_rows", "route": "cuda",
                 "source": "librdkafka_tpu_torch/csrc/lz4_rows.cu",

@@ -5,10 +5,9 @@ interface (SURVEY.md §7 stage 5) — compress / decompress / crc32c over one
 or many buffers. gzip rides Python's zlib; zstd rides the zstandard module;
 lz4 and snappy are our own native implementations (ops/native/codec.cpp).
 The GPU provider (ops/gpu.py) delegates its host-side codec work here, so
-both emit identical wire bytes.
-
-Left out of the copy: ``_ext()`` (the fast-lane extension's batched entry
-points), which belongs to the client slice of the port.
+both emit identical wire bytes.  The batched lz4/snappy decoders and
+the CRC32C of many buffers ride the port's enqueue-lane extension
+(``_ext()``, ops/native/enqlane.cpp) when it is built.
 """
 from __future__ import annotations
 
@@ -65,6 +64,10 @@ def lib() -> ctypes.CDLL:
         L.tk_frame_v2.restype = i64
         L.tk_frame_v2.argtypes = [ctypes.c_char_p, i32p, i32p, i64p,
                                   ctypes.c_int, u8p, i64]
+        L.tk_frame_v2_run.restype = i64
+        L.tk_frame_v2_run.argtypes = [ctypes.c_char_p, i32p, i32p, i64p,
+                                      i64, ctypes.c_char_p, i32p,
+                                      ctypes.c_int, u8p, i64, i64p, i64p]
         for name in ("tk_lz4f_bound", "tk_snappy_bound", "tk_lz4_block_bound",
                      "tk_snappy_uncompressed_length"):
             fn = getattr(L, name)
@@ -229,6 +232,59 @@ def frame_v2(base: bytes, klens: list[int], vlens: list[int],
     if r < 0:
         raise ValueError("tk_frame_v2 capacity shortfall")
     return ctypes.string_at(buf.ctypes.data, int(r))
+
+
+def frame_v2_raw(base: bytes, klens: bytes, vlens: bytes,
+                 count: int) -> bytes:
+    """frame_v2 for the native enqueue lane: klens/vlens arrive as raw
+    int32 arrays straight from the arena (no per-record Python work) and
+    all timestamp deltas are zero (fast-lane records carry timestamp=0 =
+    batch build time)."""
+    L = lib()
+    zeros = np.zeros(count, dtype=np.int64)
+    cap = L.tk_frame_v2_bound(len(base), count)
+    buf, p = _frame_outbuf(cap)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    ka = np.frombuffer(klens, dtype=np.int32)
+    va = np.frombuffer(vlens, dtype=np.int32)
+    r = L.tk_frame_v2(base, ka.ctypes.data_as(i32p),
+                      va.ctypes.data_as(i32p), zeros.ctypes.data_as(i64p),
+                      count, p, cap)
+    if r < 0:
+        raise ValueError("tk_frame_v2 capacity shortfall")
+    return ctypes.string_at(buf.ctypes.data, int(r))
+
+
+def frame_v2_run(base: bytes, klens: bytes, vlens: bytes, count: int,
+                 now_ms: int, tss: bytes | None = None,
+                 hbuf: bytes | None = None, hlens: bytes | None = None,
+                 ) -> tuple[bytes, int, int]:
+    """Run-native framing for widened arena runs: per-record explicit
+    timestamps (raw int64 array; 0 = unset -> now_ms) and pre-encoded
+    header blobs (hbuf concatenation + raw int32 lens) straight from the
+    arena side buffers.  Returns (records, first_ts, max_ts) — the
+    header timestamps the batch assembler needs."""
+    L = lib()
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    ta = np.frombuffer(tss, dtype=np.int64) if tss is not None else None
+    ha = np.frombuffer(hlens, dtype=np.int32) if hlens is not None else None
+    cap = L.tk_frame_v2_bound(len(base) + (len(hbuf) if hbuf else 0), count)
+    buf, p = _frame_outbuf(cap)
+    ka = np.frombuffer(klens, dtype=np.int32)
+    va = np.frombuffer(vlens, dtype=np.int32)
+    first = ctypes.c_int64(now_ms)
+    last = ctypes.c_int64(now_ms)
+    r = L.tk_frame_v2_run(
+        base, ka.ctypes.data_as(i32p), va.ctypes.data_as(i32p),
+        ta.ctypes.data_as(i64p) if ta is not None else None,
+        now_ms, hbuf, ha.ctypes.data_as(i32p) if ha is not None else None,
+        count, p, cap, ctypes.byref(first), ctypes.byref(last))
+    if r < 0:
+        raise ValueError("tk_frame_v2_run capacity shortfall")
+    return (ctypes.string_at(buf.ctypes.data, int(r)),
+            int(first.value), int(last.value))
 
 
 # ------------------------------------------------------------- gzip/zstd ---
@@ -406,6 +462,26 @@ CODECS = {
 }
 
 
+_EXT = None
+_EXT_ERR = False
+
+
+def _ext():
+    """The tk_torch_enqlane extension's batched codec entry points (no-join
+    crc32c_many / in-place decompress_many), or None."""
+    global _EXT, _EXT_ERR
+    if _EXT is None and not _EXT_ERR:
+        try:
+            from .native.build import load_enqlane
+            m = load_enqlane()
+            _EXT = m if hasattr(m, "crc32c_many") else None
+            if _EXT is None:
+                _EXT_ERR = True
+        except Exception:
+            _EXT_ERR = True
+    return _EXT
+
+
 class CpuCodecProvider:
     """The msgset codec provider interface (SURVEY.md §7 stage 5).
 
@@ -434,6 +510,23 @@ class CpuCodecProvider:
                         size_hints: list[int] | None = None) -> list[bytes]:
         if not bufs:
             return []
+        if codec in ("lz4", "snappy"):
+            ext = _ext()
+            if (ext is not None and codec == "snappy" and any(
+                    bytes(b).startswith(SNAPPY_JAVA_MAGIC)
+                    for b in bufs)):
+                ext = None           # java framing: python reader below
+            if ext is not None:
+                out = ext.decompress_many(3 if codec == "lz4" else 2,
+                                          bufs, size_hints)
+                if None not in out:
+                    return out
+                # isolate failures through the grow-and-retry path
+                return [o if o is not None else
+                        self.decompress_one(codec, b, h)
+                        for o, b, h in zip(
+                            out, bufs,
+                            size_hints or [0] * len(bufs))]
         if codec == "lz4":
             return lz4f_decompress_many(bufs, size_hints)
         if codec == "snappy" and not any(
@@ -447,6 +540,10 @@ class CpuCodecProvider:
         return CODECS[codec][1](buf, hint)
 
     def crc32c_many(self, bufs: list[bytes]) -> list[int]:
+        ext = _ext()
+        if ext is not None:
+            # per-buffer hardware CRC with no join copy (enqlane.cpp)
+            return ext.crc32c_many(bufs)
         return crc32c_many(bufs).tolist()
 
     def crc32_many(self, bufs: list[bytes]) -> list[int]:
@@ -473,3 +570,12 @@ class CpuCodecProvider:
                           size_hints: list[int] | None = None):
         from .engine import SyncTicket
         return SyncTicket(self.decompress_many(codec, bufs, size_hints))
+
+    def fused_codec_id(self, codec: str) -> int | None:
+        """Wire attribute id when the fused native batch builder
+        (tk_torch_enqlane.build_batch: frame+compress+CRC+header in one
+        GIL-released call) is equivalent to this provider's 3-phase
+        path for ``codec``; None keeps the 3-phase pipeline.  The
+        fused lz4/snappy encoders are the same native functions
+        compress_many dispatches to, so wire bytes are identical."""
+        return {"none": 0, "snappy": 2, "lz4": 3}.get(codec)

@@ -543,14 +543,14 @@ def launch(staged: tuple, stream=None) -> torch.Tensor:
 
 def resolve_device(device=None) -> torch.device:
     """The card unless the caller asks for another device; never a
-    silent CPU fallback."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: pass device='cpu' to run the plain "
-                "PyTorch version of the kernels")
-        return torch.device("cuda")
-    return torch.device(device)
+    silent CPU fallback: ``None``, ``"cuda"`` or ``"cuda:N"`` on a host
+    without CUDA raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' (gpu.device=cpu) to run "
+            "the plain PyTorch version of the kernels")
+    return dev
 
 
 def crc32c_many(bufs, device=None) -> np.ndarray:

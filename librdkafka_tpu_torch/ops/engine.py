@@ -630,7 +630,11 @@ class AsyncOffloadEngine:
              "fanin_waits": 0, "host_jobs": 0,
              "fanin_skips": 0, "warmup_miss_jobs": 0,
              "warmup_compiled": 0, "routed_cpu_jobs": 0,
-             "explore_routes": 0, "fused_launches": 0})
+             "explore_routes": 0, "fused_launches": 0,
+             # the JAX engine's mesh-sharded launches: the port has no
+             # sharded route yet (one lane per card), so it stays 0 and
+             # the statistics JSON keeps the reference's key tree
+             "sharded_launches": 0})
         # the device compress route's counters, kept apart from the CRC
         # stats (same discipline: dispatch-thread writes, snapshot reads)
         self.compress_stats = shared_dict("engine.compress_stats",
@@ -864,16 +868,15 @@ class AsyncOffloadEngine:
                 "fanin_occupancy": self._fanin_last}
 
     def devices_snapshot(self) -> list:
-        """Per-lane gauges: launch/block/job counts, in-flight depth, the
-        governor's per-bucket launch-time EWMAs, the warm-kernel count
-        and the staging bytes of each device.  Empty until the lanes
-        resolve."""
-        return [{"id": ln.dev_id, "device": str(ln.device),
+        """Per-lane gauges for the statistics JSON (codec_engine.devices[],
+        the reference's keys): launch/block/job counts, in-flight depth,
+        the governor's per-bucket launch-time EWMAs and the warm-kernel
+        count of each device.  Empty until the lanes resolve."""
+        return [{"id": ln.dev_id,
                  "launches": ln.launches, "blocks": ln.blocks,
                  "jobs": ln.jobs, "inflight": len(ln.inflight),
                  "dev_launch_ms": self.governor.device_launch_ms(ln.dev_id),
-                 "warm_buckets": _crc.warm_bucket_count(ln.device),
-                 "staging_bytes": ln.staging.nbytes()}
+                 "warm_buckets": _crc.warm_bucket_count(ln.device)}
                 for ln in self._lanes]
 
     # ------------------------------------------------------------- lanes --

@@ -310,12 +310,15 @@ class GpuCodecProvider:
         return self._cpu_crc_fallback(bufs, poly)
 
     def fused_codec_id(self, codec: str) -> int | None:
-        """None: the 3-phase pipeline (frame, compress, batched CRC).  The
-        JAX provider hands a round to the fused native batch build only
-        when both the compress and the CRC would run on the CPU (no
-        ``lz4_force``, transport gate closed); the port has no fused
-        native build, so its pipeline serves that case too."""
-        return None
+        """The fused native batch build (tk_torch_enqlane.build_batch) is
+        allowed only when this provider would route BOTH the compress and
+        the CRC to the CPU anyway (lz4 not forced onto the card, transport
+        gate closed): then it is exactly the CPU provider's fused path.
+        With the device route open (None) the 3-phase pipeline keeps the
+        batched CRC, and with ``compress_device`` the lz4, on the card."""
+        if self.lz4_force or self._offload_pays():
+            return None
+        return self._cpu.fused_codec_id(codec)
 
     # ------------------------------------------------- pipelined offload --
     def _get_engine(self):

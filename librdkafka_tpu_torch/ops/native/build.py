@@ -1,29 +1,39 @@
-"""Build the native codec library (g++ → ``_codec.so``), cached by mtime.
+"""Build the native libraries (g++ → .so), cached by mtime.
 
-The port's copy of librdkafka_tpu/ops/native/build.py, reduced to the
-one artifact this package uses: ``_codec.so``, a plain shared library
-reached via ctypes (codec.cpp).  The fast-lane CPython extension
-(``tk_enqlane.so``) belongs to the client slice of the port.
+The port's copy of librdkafka_tpu/ops/native/build.py.  Two artifacts:
+  _codec.so           — plain shared library reached via ctypes (codec.cpp)
+  tk_torch_enqlane.so — CPython extension module (enqlane.cpp with
+                        codec.cpp linked in; ctypes call overhead would
+                        eat the enqueue lane's win).  Its module name is
+                        the port's own, so the JAX package's
+                        ``tk_enqlane`` and this one load side by side.
 """
 from __future__ import annotations
 
 import os
 import subprocess
+import sysconfig
 import threading
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(_DIR, "codec.cpp")
 SO = os.path.join(_DIR, "_codec.so")
+ENQ_NAME = "tk_torch_enqlane"
+ENQ_SRC = os.path.join(_DIR, "enqlane.cpp")
+ENQ_SO = os.path.join(_DIR, ENQ_NAME + ".so")
 _lock = threading.Lock()
 
 
-def _compile(src: str, so: str, extra: list[str]) -> str:
-    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+def _compile(src, so: str, extra: list[str]) -> str:
+    srcs = [src] if isinstance(src, str) else list(src)
+    if (os.path.exists(so)
+            and all(os.path.getmtime(so) >= os.path.getmtime(s)
+                    for s in srcs)):
         return so
     # per-process temp name: parallel test workers may build at once
     tmp = f"{so}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
-           *extra, "-o", tmp, src]
+           *extra, "-o", tmp, *srcs]
     subprocess.run(cmd, check=True, capture_output=True)
     os.replace(tmp, so)
     return so
@@ -50,3 +60,33 @@ def build(force: bool = False) -> str:
             os.remove(so)               # wrong-platform prebuilt: rebuild
             so = _compile(SRC, SO, ["-fvisibility=hidden"])
         return so
+
+
+def build_enqlane(force: bool = False) -> str:
+    """Compile the tk_torch_enqlane CPython extension if stale; returns
+    its path.  codec.cpp is linked in too: the fused batch builder
+    (build_batch) calls its framing/codec/CRC functions directly."""
+    with _lock:
+        if force and os.path.exists(ENQ_SO):
+            os.remove(ENQ_SO)
+        inc = sysconfig.get_paths()["include"]
+        return _compile([ENQ_SRC, SRC], ENQ_SO, ["-I" + inc])
+
+
+def load_enqlane():
+    """Import the tk_torch_enqlane extension module (building if stale).
+    A shipped wrong-platform binary gets one rebuild before giving up."""
+    import importlib.machinery
+    import importlib.util
+
+    def _load(path):
+        loader = importlib.machinery.ExtensionFileLoader(ENQ_NAME, path)
+        spec = importlib.util.spec_from_loader(ENQ_NAME, loader)
+        mod = importlib.util.module_from_spec(spec)
+        loader.exec_module(mod)
+        return mod
+
+    try:
+        return _load(build_enqlane())
+    except ImportError:
+        return _load(build_enqlane(force=True))

@@ -103,3 +103,32 @@ def pad_left(buffers: list[bytes], N: int):
 def pad_right(buffers: list[bytes], N: int):
     """Left-aligned rows (trailing zeros) — the lz4 kernel layout."""
     return _pack(buffers, N, False)
+
+
+def iter_run_records(base, klens, vlens, count, tss=None, hbuf=None,
+                     hlens=None):
+    """Walk a fast-lane arena run descriptor (the ArenaBatch layout:
+    concatenated key||value payloads + raw little-endian length arrays,
+    optional int64 timestamp and header-blob side arrays) and yield
+    ``(key, value, ts_ms, hblob)`` per record.  Host-side inspection
+    seam for the wire-equality gates and parity tests — the produce hot
+    path never walks records in Python."""
+    kl = np.frombuffer(klens, np.int32)[:count]
+    vl = np.frombuffer(vlens, np.int32)[:count]
+    ts = np.frombuffer(tss, np.int64)[:count] if tss is not None else None
+    hl = (np.frombuffer(hlens, np.int32)[:count]
+          if hbuf is not None else None)
+    off = 0
+    hoff = 0
+    for i in range(count):
+        k = v = hb = None
+        if kl[i] >= 0:
+            k = bytes(base[off:off + int(kl[i])])
+            off += int(kl[i])
+        if vl[i] >= 0:
+            v = bytes(base[off:off + int(vl[i])])
+            off += int(vl[i])
+        if hl is not None and hl[i] > 0:
+            hb = bytes(hbuf[hoff:hoff + int(hl[i])])
+            hoff += int(hl[i])
+        yield k, v, (int(ts[i]) if ts is not None else 0), hb

@@ -403,3 +403,196 @@ def test_engine_compress_route_on_card(card):
     finally:
         prov.close()
     assert lz4_torch.device_kernel_count() == 0
+
+
+# ------------------------------------------------ Producer -> mock -> Consumer --
+
+def _client_leg(extra: dict, det: bool, parts: int = 8, per_part: int = 300):
+    """Phase 6 of chip_smoke at a small size: an idempotent lz4 Producer
+    on the card's route into the mock, then a check.crcs GPU Consumer;
+    the stored frames are the native encoder's and every record comes
+    back in order.  Returns (producer launches, consumer engine stats)
+    as (crc, lz4) kernel counts over the produce."""
+    import json
+
+    from librdkafka_tpu_torch import Consumer, Producer
+    from librdkafka_tpu_torch.client.consumer import TopicPartition
+    from librdkafka_tpu_torch.ops import lz4_torch
+    from librdkafka_tpu_torch.protocol.msgset import (iter_batches,
+                                                      parse_records_v2)
+    from librdkafka_tpu_torch.protocol.proto import OFFSET_BEGINNING
+    gpu = {"compression.backend": "gpu", "gpu.governor": False,
+           "gpu.launch.min.batches": 1}
+    p = Producer({"bootstrap.servers": "", "test.mock.num.brokers": 1,
+                  "test.mock.default.partitions": parts,
+                  "enable.idempotence": True, "compression.codec": "lz4",
+                  "linger.ms": 5, **gpu, **extra})
+    c = None
+    try:
+        assert p._rk.codec_provider.device.type == "cuda"
+        assert p._rk.codec_provider.wait_warm(300)
+        vals = [[b"%02d-%05d " % (i, j) * 100 for j in range(per_part)]
+                for i in range(parts)]
+        c0, l0 = crc.launches, lz4_torch.launches
+        for j in range(per_part):
+            for i in range(parts):
+                p.produce("gt", value=vals[i][j], key=b"%d" % i, partition=i)
+        assert p.flush(120) == 0
+        launches = (crc.launches - c0, lz4_torch.launches - l0)
+        cluster = p._rk.mock_cluster
+        for i in range(parts):
+            frames, infos = [], []
+            for _b, blob in cluster.partition("gt", i).log:
+                for info, payload, _full in iter_batches(blob):
+                    infos.append(info)
+                    frames.append(bytes(payload))
+            raws = native.lz4f_decompress_many(frames, None)
+            assert frames == native.lz4f_compress_many(
+                raws, deterministic=det)
+            assert [r.value for info, raw in zip(infos, raws)
+                    for r in parse_records_v2(info, raw)] == vals[i]
+        c = Consumer({"bootstrap.servers": cluster.bootstrap_servers(),
+                      "group.id": "gt", "auto.offset.reset": "earliest",
+                      "check.crcs": True, **gpu})
+        assert c._rk.codec_provider.wait_warm(300)
+        c.assign([TopicPartition("gt", i, OFFSET_BEGINNING)
+                  for i in range(parts)])
+        got = [[] for _ in range(parts)]
+        n = parts * per_part
+        while sum(map(len, got)) < n:
+            ms = c.consume(n - sum(map(len, got)), 30)
+            assert ms, "consumer stalled"
+            for m in ms:
+                assert m.error is None, m.error
+                got[m.partition].append(m.value)
+        assert got == vals
+        ceng = json.loads(c._rk.stats.emit_json())["codec_engine"]
+        assert ceng["launches"] > 0
+        assert not any(ceng[k] for k in ("warmup_miss_jobs",
+                                         "routed_cpu_jobs",
+                                         "cpu_fallback_jobs"))
+        return launches, json.loads(p._rk.stats.emit_json())["codec_engine"]
+    finally:
+        if c is not None:
+            c.close()
+        p.close()
+
+
+def test_client_crc_ticket_route_on_card(card):
+    (crcs, lz4s), eng = _client_leg({}, det=False)
+    assert crcs > 0 and lz4s == 0 and eng["launches"] > 0
+    assert not any(eng[k] for k in ("warmup_miss_jobs", "routed_cpu_jobs",
+                                    "cpu_fallback_jobs"))
+
+
+def test_client_device_compress_route_on_card(card):
+    (crcs, lz4s), eng = _client_leg({"gpu.compress.device": True}, det=True)
+    assert crcs == 0 and lz4s > 0
+    comp = eng["compress"]
+    assert comp["launches"] > 0 and comp["fused_crc"] > 0
+    assert not any(comp[k] for k in ("cpu_jobs", "warmup_miss_jobs",
+                                     "routed_cpu_jobs", "shed_jobs"))
+
+
+def test_gpu_backend_raises_without_cuda(monkeypatch):
+    """Runs on any host: with no CUDA device, Producer and Consumer with
+    compression.backend=gpu raise unless gpu.device=cpu is asked for."""
+    from librdkafka_tpu_torch import Consumer, Producer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (Producer, Consumer):
+        conf = {"bootstrap.servers": "", "compression.backend": "gpu",
+                **({"group.id": "g"} if make is Consumer else {})}
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(dict(conf))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make({**conf, "gpu.device": "cuda:0"})
+
+
+def test_hot_topic_flood_qos_isolation_on_card(card):
+    """test_0135 :448 at the reference's sizes, on the card (the JAX
+    package's chaos.scenarios.hot_topic_flood with gpu.* keys): a
+    weight-8 latency topic beside a zipf-sized weight-0.25 bulk flood
+    (2,000 B zipf, capped at 120,000 B) through the device compress
+    route, governor and warmup on.  Every latency message acks, its
+    flooded p99 stays within 3x the unloaded p99 (floor 100 ms), and the
+    bulk topic makes progress."""
+    import json
+    import random
+    import threading
+    import time
+
+    from librdkafka_tpu_torch import Producer
+    rng = random.Random(17)
+    p = Producer({"bootstrap.servers": "", "test.mock.num.brokers": 1,
+                  "compression.backend": "gpu", "gpu.transport.min.mb.s": 0,
+                  "gpu.compress.device": True, "gpu.launch.min.batches": 1,
+                  "gpu.governor": True, "gpu.warmup": True,
+                  "compression.codec": "lz4", "linger.ms": 2,
+                  "batch.num.messages": 32})
+    lock = threading.Lock()
+    lat_un, lat_fl, bulk_acked = [], [], [0]
+
+    def pct99(xs):
+        xs = sorted(xs)
+        return xs[min(len(xs) - 1, int(0.99 * len(xs)))] if xs else None
+
+    try:
+        p._rk.set_topic_conf("qos-latency", {"topic.qos.weight": 8.0})
+        p._rk.set_topic_conf("qos-bulk", {"topic.qos.weight": 0.25})
+
+        def ping(sink):
+            ts = time.perf_counter()
+
+            def dr(err, _msg):
+                if err is None:
+                    with lock:
+                        sink.append((time.perf_counter() - ts) * 1e3)
+            p.produce("qos-latency", value=b"lat-ping " * 40,
+                      on_delivery=dr)
+
+        def bulk_dr(err, _msg):
+            if err is None:
+                with lock:
+                    bulk_acked[0] += 1
+
+        for _ in range(40):
+            ping(lat_un)
+            p.poll(0.01)
+        p.flush(60)
+        stop = threading.Event()
+
+        def flood():
+            while not stop.is_set():
+                n = min(int(2000 * (1.0 / (1.0 - rng.random()) ** 1.2)),
+                        120_000)
+                try:
+                    p.produce("qos-bulk", value=b"\xa5" * max(n, 100),
+                              on_delivery=bulk_dr)
+                except BufferError:
+                    time.sleep(0.002)
+                time.sleep(0.0005)
+
+        flooder = threading.Thread(target=flood, name="qos-flooder",
+                                   daemon=True)
+        flooder.start()
+        t_end = time.monotonic() + 1.5
+        while time.monotonic() < t_end:
+            ping(lat_fl)
+            p.poll(0.02)
+        stop.set()
+        flooder.join(10)
+        assert not flooder.is_alive()
+        assert p.flush(120) == 0
+        comp = json.loads(p._rk.stats.emit_json())["codec_engine"][
+            "compress"]
+    finally:
+        p.close()
+    with lock:
+        p99_un, p99_fl = pct99(lat_un), pct99(lat_fl)
+        acked = len(lat_un) + len(lat_fl)
+    assert acked == 40 + len(lat_fl) and len(lat_un) == 40
+    assert p99_fl is not None and p99_fl <= max(3.0 * p99_un, 100.0), (
+        p99_un, p99_fl)
+    assert bulk_acked[0] > 0
+    assert comp["launches"] > 0, comp
+    assert comp["qos"]["qos-latency"]["weight"] == 8.0, comp
