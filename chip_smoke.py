@@ -77,7 +77,26 @@ records in order; a corrupted batch must raise CrcMismatch in the port's
 reader and reach the consumer as _BAD_MSG; the GPU legs must show launches
 and no CPU route.  It prints each leg's produce and consume msgs/s
 (median and spread of the three repeats) and its launch counts, which add
-to the kernels line.  Any mismatch exits non-zero.
+to the kernels line.  Phase 7 drives the multi-device codec path
+(parallel/mesh.py) over a pool of the visible cards, or of card 0 four
+times on a one-card host (whose shards run one after another, so none of
+its times is a scale-out figure; the script prints which case ran):
+(a) kernel G through the engine at 1, 2 and 4 lanes of the pool (the
+governor on for a fused crc32c + crc32 group the fan-in merges, and no
+CPU fallback at all): bench.py's 6 x 64 x 64 KB, test_0018's 16 x 64 KB
++ tail, and the fused group, every CRC == native, the staged inputs of
+the sharded launch == crc_segments_reference, every lane recording the
+sharded launches, nothing left in flight and no step after close(), with
+MB/s and the per-lane launch/block split; (b) kernel H, shard_compress
+over the pool on phase 5's 1,024 blocks and on 1,023, == the native
+block encoder, crc32c, the summed lengths and the per-shard plain
+version, the empty list building no step; (c) entry()'s step on the card
+== its plain version, and dryrun_multichip(4); (d) phase 6 leg b's
+Producer with gpu.mesh.devices=0 through ``python -m
+librdkafka_tpu_torch.mock.standalone`` (its own process, killed and
+reaped on every exit) and a check.crcs Consumer, 3 x 64 x 1,600 x 1 KB,
+its msgs/s beside phase 6b's; then G's and H's host-clock step times
+beside their plain versions and bounds.  Any mismatch exits non-zero.
 
 The last two lines of standard output are a ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -87,6 +106,8 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import select
 import statistics
 import subprocess
 import sys
@@ -105,6 +126,7 @@ from librdkafka_tpu_torch.models import codec_step
 from librdkafka_tpu_torch.ops import crc32c_torch as crc
 from librdkafka_tpu_torch.ops import lz4_torch as lz4
 from librdkafka_tpu_torch.ops.engine import AsyncOffloadEngine
+from librdkafka_tpu_torch.parallel import mesh
 from librdkafka_tpu_torch.ops.packing import (LZ4F_BLOCKSIZE, lz4f_frame,
                                               pad_left, pad_right)
 from librdkafka_tpu_torch.protocol.msgset import (CrcMismatch,
@@ -1382,7 +1404,8 @@ def phase_lz4(cpu_p, work: dict, rng) -> dict:
           "wire == deterministic writer with no CRC launch, QoS shed, "
           "close, codec step)")
     return {"launches": sum(counted.values()), "counted": counted,
-            "max_err": max_err, **timing["both"]}
+            "max_err": max_err, **timing["both"], "blocks": blocks,
+            "timing": timing}
 
 
 # ---------------------------------------------------------------- phase 6 --
@@ -1631,8 +1654,369 @@ def phase_client(device: str = "cuda", parts: int = P6_PARTS,
     print(f"phase 6: ok ({time.perf_counter() - t0:.1f} s, checks and "
           f"warm starts included)")
     # 6a's consumer is on the card too: every leg's launches count
-    return {k: sum(leg["counts"][k] for leg in legs)
-            for k in ("crc_rows", "lz4_rows")}
+    return {**{k: sum(leg["counts"][k] for leg in legs)
+               for k in ("crc_rows", "lz4_rows")}, "legs": legs}
+
+
+# ---------------------------------------------------------------- phase 7 --
+
+P7_ROWS, P7_SUBS = 64, 6        # bench.py:1005-1031's mesh workload
+P7_PER_PART, P7_REPEATS = 1600, 3
+
+
+def p7_pool() -> list:
+    """The mesh pool: the visible cards when there are two or more, else
+    card 0 four times (the shards of a launch then run one after another
+    on it: serialized_launch chains every launch of one card)."""
+    n = torch.cuda.device_count()
+    return ([f"cuda:{i}" for i in range(n)] if n >= 2
+            else ["cuda:0"] * 4)
+
+
+def p7_crcs(bufs, poly: str) -> list[int]:
+    return [native.crc32c(b) if poly == "crc32c"
+            else zlib.crc32(b) & 0xFFFFFFFF for b in bufs]
+
+
+class ShardRecorder:
+    """While ``on``, copies the staged inputs of every shard the engine
+    launches (its pinned slot's bytes and its plan), so the plain version
+    can be run on exactly what the kernel read."""
+
+    def __init__(self):
+        self.on = False
+        self.shards: list = []
+        self._orig = mesh._CrcStep.launch_slot
+        rec = self
+
+        def launch_slot(step, slot, plan, bufs):
+            if rec.on:
+                rec.shards.append((slot.host[:plan.nbytes].clone(), plan))
+            return rec._orig(step, slot, plan, bufs)
+
+        mesh._CrcStep.launch_slot = launch_slot
+
+    def plain(self) -> list[int]:
+        """crc_segments_reference on the card over every recorded shard's
+        staged bytes, in launch order."""
+        out = []
+        for host, plan in self.shards:
+            flat = host[:plan.flat_bytes].cuda()
+            out += crc.crc_segments_reference(
+                flat, torch.from_numpy(plan.offsets),
+                torch.from_numpy(plan.lengths),
+                torch.from_numpy(plan.sel)).cpu().tolist()
+        return out
+
+    def close(self) -> None:
+        mesh._CrcStep.launch_slot = self._orig
+
+
+def p7_engine(pool: list, k: int, rec: ShardRecorder) -> dict:
+    """7a at ``k`` lanes: warm, then (counted) bench.py's mesh workload
+    pipelined, test_0018's 16 x 64 KB + tail with its shards' staged
+    inputs recorded, and a crc32c + crc32 group of 8k + 8 blocks that
+    the fan-in merges into one fused launch (min_batches is the pair's
+    buffer count, so neither job launches alone).  The governor is on,
+    for the fused group, with no CPU fallback: no group can leave the
+    card."""
+    rng = np.random.default_rng(6)
+    bench_rows = [rng.integers(0, 256, LZ4F_BLOCKSIZE, dtype=np.uint8)
+                  .tobytes() for _ in range(P7_ROWS)]
+    t18 = [rng.integers(0, 256, LZ4F_BLOCKSIZE, dtype=np.uint8).tobytes()
+           for _ in range(16)] + [b"tail-block" * 7]
+    mixed_c = bench_rows[:8 * k]
+    mixed_l = [b"legacy-%d " % i * 400 for i in range(8)]
+    want_bench = p7_crcs(bench_rows, "crc32c")
+    eng = AsyncOffloadEngine(depth=2, fanin_window_s=0.5,
+                             min_batches=len(mixed_c) + len(mixed_l),
+                             governor=True, devices=pool, mesh_devices=k,
+                             cpu_fallback=None)
+    def bench_leg() -> float:
+        """bench.py's leg: P7_SUBS submissions in flight at once (the
+        dispatch thread merges the ones queued together), then every
+        result; seconds."""
+        t0 = time.perf_counter()
+        tickets = [eng.submit(bench_rows, "crc32c", window=False)
+                   for _ in range(P7_SUBS)]
+        for t in tickets:
+            check(t.result(300).tolist() == want_bench,
+                  f"7a k={k}: bench workload != native crc32c")
+        return time.perf_counter() - t0
+
+    try:
+        # warm, not counted: every lane's kernel, the sharded steps, and
+        # the staging slots and device buffers of a merged leg's sizes
+        for bufs in (t18, mixed_c):
+            check(eng.submit(bufs, "crc32c", window=False).result(300)
+                  .tolist() == p7_crcs(bufs, "crc32c"), f"7a k={k}: warm")
+        bench_leg()
+        s0 = dict(eng.stats)
+        lanes0 = {r["id"]: (r["launches"], r["blocks"])
+                  for r in eng.devices_snapshot()}
+        crc.launches = 0
+        mesh.crc_launches = 0
+        eng.stage_latency_snapshot()             # drop the windows so far
+        legs = [bench_leg() for _ in range(3)]
+        lat = eng.stage_latency_snapshot()
+        dt = statistics.median(legs)
+        rec.shards.clear()
+        rec.on = True
+        got18 = eng.submit(t18, "crc32c", window=False).result(300).tolist()
+        rec.on = False
+        check(got18 == p7_crcs(t18, "crc32c"), f"7a k={k}: test_0018's "
+              "group != native crc32c")
+        tc = eng.submit(mixed_c, "crc32c", window=True)
+        tl = eng.submit(mixed_l, "crc32", window=True)
+        check(tc.result(300).tolist() == p7_crcs(mixed_c, "crc32c")
+              and tl.result(300).tolist() == p7_crcs(mixed_l, "crc32"),
+              f"7a k={k}: the mixed group != native crc32c / crc32")
+        counts = {"crc_rows": crc.launches, "G": mesh.crc_launches}
+        d = {key: eng.stats[key] - s0[key] for key in (
+            "launches", "sharded_launches", "fused_launches", "blocks")}
+        check(d["fused_launches"] >= 1, f"7a k={k}: the crc32c + crc32 "
+              f"pair did not fuse: {d}")
+        rows = eng.devices_snapshot()
+        nlanes = len(rows)
+        if nlanes > 1:
+            check(d["sharded_launches"] >= 1, f"7a k={k}: no sharded "
+                  f"launch: {d}")
+            check(all(r["launches"] > lanes0[r["id"]][0] for r in rows),
+                  f"7a k={k}: a lane did not record the sharded launch")
+            # (a CPU pool, the rehearsal's, runs the plain version)
+            check(counts["G"] >= nlanes or pool[0].startswith("cpu"),
+                  f"7a k={k}: {counts['G']} shard launches")
+        # test_0018's 17 blocks shard at k = 2 (8 a lane), not at k = 4
+        check(bool(rec.shards) == (nlanes == 2), f"7a k={k}: "
+              f"{len(rec.shards)} shards of test_0018's group recorded")
+        check(not rec.shards or rec.plain() == got18, f"7a k={k}: the "
+              "staged shards through crc_segments_reference != the "
+              "engine's CRCs")
+        check(eng._inflight_total() == 0, f"7a k={k}: launches left in "
+              "flight")
+        split = "; ".join(f"lane {r['id']} {r['launches'] - lanes0[r['id']][0]}"
+                          f"/{r['blocks'] - lanes0[r['id']][1]}" for r in rows)
+        mb = P7_SUBS * P7_ROWS * LZ4F_BLOCKSIZE / 1e6
+        rate = mb / dt
+        print(f"phase 7a: k={k}: {nlanes} lane(s); {P7_SUBS} x {P7_ROWS} x "
+              f"64 KB in flight, median of 3 legs {rate:.1f} MB/s (legs "
+              + ", ".join(f"{mb / x:.1f}" for x in legs)
+              + f"); counted launches "
+              f"{d['launches']} (sharded {d['sharded_launches']}, fused "
+              f"{d['fused_launches']}), {counts['G']} shard launches; "
+              f"launches/blocks a lane: {split}"
+              + (f"; {len(rec.shards)} staged shards == plain version"
+                 if rec.shards else ""))
+        print("  stage_latency over the 3 legs (us, avg/p50/p99): "
+              + "; ".join(f"{key} {lat[key]['avg']}/{lat[key]['p50']}/"
+                          f"{lat[key]['p99']}" for key in
+                          ("submit_wait", "launch", "reap")))
+    finally:
+        eng.close()
+    check(mesh.step_cache_count() == 0, f"7a k={k}: close() left "
+          f"{mesh.step_cache_count()} sharded steps")
+    return {"rate": rate, "counts": counts}
+
+
+def p7_codec_check(m, blocks) -> dict:
+    """7b on ``blocks``: shard_compress == native encoder, crc32c and
+    summed lengths, and == the per-shard plain version."""
+    lz4.launches = 0
+    mesh.codec_launches = 0
+    outs, crcs, total = mesh.shard_compress(m, blocks)
+    counts = {"lz4_rows": lz4.launches, "H": mesh.codec_launches}
+    check(counts["H"] == m.size or m.devices[0].type == "cpu",
+          f"7b: {counts['H']} shard launches for {m.size} shards")
+    check(outs == [native.lz4_block_compress(b) for b in blocks],
+          f"7b: {len(blocks)} blocks != the native block encoder")
+    check(crcs.tolist() == [native.crc32c(b) for b in blocks],
+          f"7b: {len(blocks)} blocks' CRCs != native crc32c")
+    check(total == sum(len(o) for o in outs), "7b: total != the summed "
+          "lengths")
+    B = len(blocks)
+    Bp = -(-B // m.size) * m.size
+    data, lens = pad_right(blocks + [b""] * (Bp - B), LZ4F_BLOCKSIZE)
+    valid = np.array([1] * B + [0] * (Bp - B), np.int32)
+    comp, olen, pcrc, ptotal = mesh.sharded_codec_reference(
+        m, data, lens, valid, True)
+    klen = np.array([len(o) for o in outs], np.int64)
+    err = max(int(np.abs(klen - olen[:B]).max()),
+              int(np.abs(crcs.astype(np.int64)
+                         - pcrc[:B].astype(np.int64)).max()),
+              abs(total - ptotal))
+    check(err == 0 and [comp[i, :olen[i]].tobytes() for i in range(B)]
+          == outs, f"7b: {B} blocks: kernel != the per-shard plain version")
+    print(f"phase 7b: shard_compress of {B} blocks over {m.size} shards == "
+          f"native encoder, crc32c and summed lengths ({total} B) == "
+          f"per-shard plain version; {counts['H']} lz4_rows launches")
+    return {"counts": counts, "data": data, "lens": lens, "valid": valid,
+            "olen": olen, "err": err}
+
+
+def p7_standalone(p6b: dict, device: str = "cuda") -> dict:
+    """7d: phase 6 leg b's Producer (CRC tickets, governor off, quorum 1,
+    warm) plus gpu.mesh.devices=0, against the mock in its own process;
+    every record read back in order through a check.crcs consumer."""
+    from librdkafka_tpu_torch import Consumer, Producer
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "librdkafka_tpu_torch.mock.standalone",
+         "--partitions", str(P6_PARTS)],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    p = c = None
+    try:
+        ready, _, _ = select.select([proc.stdout], [], [], 60)
+        bootstrap = proc.stdout.readline().strip() if ready else ""
+        check(bool(bootstrap), "7d: the standalone mock did not start")
+        conf = p6_conf("gpu", device, P6_PARTS, {"gpu.mesh.devices": 0})
+        for key in ("test.mock.num.brokers", "test.mock.default.partitions"):
+            conf.pop(key)
+        conf["bootstrap.servers"] = bootstrap
+        flat = payloads(P6_PARTS * P7_PER_PART, VALUE_SIZE)
+        vals = [flat[i * P7_PER_PART:(i + 1) * P7_PER_PART]
+                for i in range(P6_PARTS)]
+        keys = [b"p%02d" % i for i in range(P6_PARTS)]
+        p = Producer(conf)
+        prov = p._rk.codec_provider
+        check(prov.wait_warm(300), "7d: producer route not warm")
+        c = Consumer({"bootstrap.servers": bootstrap, "group.id": "p7d",
+                      "auto.offset.reset": "earliest", "check.crcs": True,
+                      "compression.backend": "gpu", "gpu.device": device,
+                      **P6_GPU})
+        check(c._rk.codec_provider.wait_warm(300), "7d: consumer route "
+              "not warm")
+        peng = prov._engine
+        s0 = dict(peng.stats)
+        crc.launches = 0
+        topics = [f"p7d-r{r}" for r in range(P7_REPEATS)]
+        prod = [p6_produce(p, t, keys, vals) for t in topics]
+        cons = [p6_consume(c, t, keys, vals) for t in topics]
+        no_cpu_route(peng, "7d producer")
+        no_cpu_route(c._rk.codec_provider._engine, "7d consumer")
+        d = {key: peng.stats[key] - s0[key]
+             for key in ("launches", "sharded_launches")}
+        check(d["launches"] > 0, "7d: the producer made no CRC launch")
+        lanes = len(peng._lanes)
+        print(f"phase 7d: Producer -> standalone mock (own process, "
+              f"{P6_PARTS} partitions) -> Consumer(check.crcs), "
+              f"gpu.mesh.devices=0: {P7_REPEATS} x "
+              f"{P6_PARTS * P7_PER_PART} records x {VALUE_SIZE} B, every "
+              f"record back in order; producer lanes {lanes}, launches "
+              f"{d['launches']}, sharded route "
+              + ("engaged" if d["sharded_launches"] else
+                 "not engaged" + (" (one card)" if lanes == 1 else ""))
+              + f" ({d['sharded_launches']} sharded launches)")
+        print(f"  own process: produce {p6_rates(prod)}; consume "
+              f"{p6_rates(cons)}")
+        print(f"  in process (phase 6b, this call): produce "
+              f"{p6_rates(p6b['produce'])}; consume "
+              f"{p6_rates(p6b['consume'])}")
+        return {"crc_rows": crc.launches, "produce": prod, "consume": cons}
+    finally:
+        if c is not None:
+            c.close()
+        if p is not None:
+            p.close()
+        proc.kill()
+        proc.wait(30)
+
+
+def phase_mesh(p5: dict, p6: dict) -> dict:
+    """Phase 7: the multi-device codec path (parallel/mesh.py: kernels G
+    and H), its entry points and the standalone mock."""
+    from librdkafka_tpu_torch.entry import dryrun_multichip, entry
+    t_start = time.perf_counter()
+    pool = p7_pool()
+    one_card = torch.cuda.device_count() < 2
+    print(f"phase 7: mesh pool {pool}: " + (
+        "one card, each shard of a launch runs after the one before it "
+        "on that card, so no time below is a scale-out figure"
+        if one_card else f"{len(pool)} cards, shards on different cards "
+        "overlap"))
+    counts = {"crc_rows": 0, "lz4_rows": 0, "G": 0, "H": 0}
+    rec = ShardRecorder()
+    try:
+        rates = {}
+        for k in (1, 2, 4):
+            r = p7_engine(pool, k, rec)
+            rates[k] = r["rate"]
+            for key, v in r["counts"].items():
+                counts[key] += v
+    finally:
+        rec.close()
+
+    # 7b: H over the pool
+    m = mesh.make_mesh(devices=pool)
+    check(mesh.shard_compress(m, [])[0] == [] and mesh.step_cache_count()
+          == 0, "7b: the empty list built a step")
+    blocks = p5["blocks"]
+    main = p7_codec_check(m, blocks)
+    odd = p7_codec_check(m, blocks[:-1])
+    for r in (main, odd):
+        for key, v in r["counts"].items():
+            counts[key] += v
+
+    # 7c: the entry points
+    lz4.launches = 0
+    mesh.codec_launches = 0
+    step, (data, lens) = entry()
+    got = step(data, lens)
+    dryrun_multichip(4, devices=(pool * 4)[:4])
+    counts["lz4_rows"] += lz4.launches
+    counts["H"] += mesh.codec_launches
+    want = lz4.lz4_rows_reference(data, lens, "raw")
+    check(all(torch.equal(g, w) for g, w in zip(got, (want[0], want[1],
+                                                        want[3]))),
+          "7c: entry()'s step on the card != its plain version")
+    print("phase 7c: entry()'s step on the card == plain version; "
+          f"dryrun_multichip(4, devices={(pool * 4)[:4]}) passed")
+
+    # 7d: the mock in its own process
+    d = p7_standalone(p6["legs"][1])
+    counts["crc_rows"] += d["crc_rows"]
+
+    # numbers, after the counts: G at the bench workload's rows on a mesh
+    # of up to four devices, H at phase 5's 1,024 blocks over the pool
+    gdev = pool[:4] if len(pool) >= 4 else pool[:2]
+    rng = np.random.default_rng(6)
+    rows = [rng.integers(0, 256, LZ4F_BLOCKSIZE, dtype=np.uint8).tobytes()
+            for _ in range(P7_ROWS)]
+    gdata, gterms, gsel = rows_for(rows, ["crc32c"] * P7_ROWS)
+    gm, gstep = mesh.sharded_crc_step(gdev, P7_ROWS // len(gdev),
+                                      LZ4F_BLOCKSIZE, "crc32c")
+    gk = gstep(gdata, gterms)
+    gp = mesh.sharded_crc_reference(gm, gdata, gterms, gsel)
+    g_err = int(np.abs(gk.astype(np.int64) - gp.astype(np.int64)).max())
+    check(g_err == 0 and gk.tolist() == p7_crcs(rows, "crc32c"),
+          "phase 7: G's step != plain version or native")
+    g_ms = host_ms(lambda: gstep(gdata, gterms))
+    g_plain = host_ms(lambda: mesh.sharded_crc_reference(gm, gdata, gterms,
+                                                         gsel), 2)
+    g_bound, g_by = bound(P7_ROWS, LZ4F_BLOCKSIZE, 1)
+    hstep = mesh.sharded_codec_step(m, LZ4F_BLOCKSIZE, True)
+    hargs = (main["data"], main["lens"], main["valid"])
+    h_ms = host_ms(lambda: hstep(*hargs))
+    h_plain = host_ms(lambda: mesh.sharded_codec_reference(m, *hargs), 2)
+    h_bound, h_by = lz4_bound(main["lens"], main["olen"], "raw")
+    mesh.release_step_cache()
+    print(f"  G (sharded_crc_step over {len(gdev)} shards, {P7_ROWS} x 64 "
+          f"KB rows from the host, host clock to the gathered CRCs): "
+          f"{g_ms:.4f} ms; plain version {g_plain:.3f} ms; bound "
+          f"{g_bound:.6f} ms ({g_by}); the engine's rates: " + "; ".join(
+              f"k={k} {v:.1f} MB/s" for k, v in rates.items()))
+    print(f"  H (sharded_codec_step over {m.size} shards, phase 5's "
+          f"{len(blocks)} blocks from the host, with_crc, host clock to "
+          f"the gathered rows): {h_ms:.4f} ms; plain version {h_plain:.3f} "
+          f"ms; bound {h_bound:.5f} ms ({h_by}); phase 5's one lz4_rows "
+          f"launch (\"raw\", L2 flushed, kernel only) "
+          f"{p5['timing']['raw']['ms']:.4f} ms")
+    print(f"phase 7: ok ({time.perf_counter() - t_start:.1f} s)")
+    return {"counts": counts, "max_err": g_err,
+            "h_err": max(main["err"], odd["err"]),
+            "G": {"ms": g_ms, "plain_ms": g_plain, "bound_ms": g_bound,
+                  "bound_by": g_by},
+            "H": {"ms": h_ms, "plain_ms": h_plain, "bound_ms": h_bound,
+                  "bound_by": h_by}}
 
 
 def kernel_line(main: dict, timing: dict, max_err: int) -> dict:
@@ -1662,8 +2046,11 @@ def main() -> None:
     gpu.close()
     comp = phase_lz4(cpu_p, work, rng)
     client = phase_client()
-    main_path["launches"] += engine["launches"] + client["crc_rows"]
-    comp["launches"] += client["lz4_rows"]
+    mp = phase_mesh(comp, client)
+    cnt = mp["counts"]
+    main_path["launches"] += (engine["launches"] + client["crc_rows"]
+                              + cnt["crc_rows"])
+    comp["launches"] += client["lz4_rows"] + cnt["lz4_rows"]
     line = kernel_line(main_path, timing, max(max_err, engine["max_err"]))
     lz4_line = {"name": "lz4_rows", "route": "cuda",
                 "source": "librdkafka_tpu_torch/csrc/lz4_rows.cu",
@@ -1672,8 +2059,20 @@ def main() -> None:
                 "ms": comp["ms"], "plain_ms": comp["plain_ms"],
                 "bound_ms": comp["bound_ms"], "bound_by": comp["bound_by"],
                 "library_ms": None}
+    # G and H launch the two kernels a shard; their launches are the
+    # shard launches of phase 7's main path
+    g_line = {"name": "sharded_crc_step", "route": "cuda",
+              "source": "librdkafka_tpu_torch/parallel/mesh.py",
+              "replaces": "librdkafka_tpu/parallel/mesh.py:155",
+              "launches": cnt["G"], "max_abs_err": mp["max_err"],
+              **mp["G"], "library_ms": None}
+    h_line = {"name": "sharded_codec_step", "route": "cuda",
+              "source": "librdkafka_tpu_torch/parallel/mesh.py",
+              "replaces": "librdkafka_tpu/parallel/mesh.py:225",
+              "launches": cnt["H"], "max_abs_err": mp["h_err"],
+              **mp["H"], "library_ms": None}
     print(f"{dev['smi']}")
-    print(json.dumps({"kernels": [line, lz4_line]}))
+    print(json.dumps({"kernels": [line, lz4_line, g_line, h_line]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

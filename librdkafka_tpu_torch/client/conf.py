@@ -14,13 +14,10 @@ the reference's plugin boundary (src/rdkafka_plugin.c).  ``"tpu"`` is
 rejected like any other invalid value: the port carries no JAX provider.
 
 Each ``tpu.*`` knob of the JAX package has a ``gpu.*`` twin with the same
-type, default, range and meaning, with two exceptions:
-
-  * ``tpu.compile.cache.dir`` has no counterpart: there is no JIT cache —
-    the CUDA kernels are built once by nvcc into the (gitignored) build
-    directory and reused by every process;
-  * ``tpu.mesh.devices`` waits for the port's multi-GPU lanes: the
-    engine runs one lane per visible card and has no sharded route yet.
+type, default, range and meaning, with one exception:
+``tpu.compile.cache.dir`` has no counterpart: there is no JIT cache —
+the CUDA kernels are built once by nvcc into the (gitignored) build
+directory and reused by every process.
 
 ``gpu.device`` (default ``cuda``) is the port's form of the JAX
 package's platform choice (``JAX_PLATFORMS``): ``cpu`` runs the kernels'
@@ -403,6 +400,19 @@ PROPERTIES: list[Prop] = [
        "Max codec launches in flight per broker; 0 = compress inline on "
        "the broker thread (pipeline overlap of batch build vs codec).",
        vmin=0, vmax=64, app=P),
+    _p("gpu.mesh.devices", GLOBAL, "int", 0,
+       "Number of devices the async offload engine spreads its "
+       "per-device CRC dispatch lanes over (0 = every device of the "
+       "pool, 1 = single-lane; the pool is the visible cards with "
+       "gpu.device=cuda, eight lanes of the plain version with "
+       "gpu.device=cpu): each lane gets its own stream, staging rings "
+       "and in-flight launch tracking, whole launch groups route to the "
+       "least-loaded lane, and groups of at least 8 64KB blocks a lane "
+       "split across every lane, one shard a card (parallel/mesh.py) — "
+       "wire bytes bit-identical on every route. Also shards the DEVICE "
+       "lz4 encoder's block compression when gpu.lz4.force=true. No "
+       "effect with compression.backend=cpu.",
+       vmin=0, vmax=8192),
     _p("gpu.transport.min.mb.s", GLOBAL, "int", 100,
        "Adaptive offload gate: minimum measured host<->device bandwidth "
        "(MB/s, probed once in a subprocess) for CRC32C launches to leave "
@@ -660,6 +670,7 @@ GPU_ADDITIONS = frozenset({
     (GLOBAL, "gpu.device"),
     (GLOBAL, "gpu.launch.min.batches"),
     (GLOBAL, "gpu.lz4.force"),
+    (GLOBAL, "gpu.mesh.devices"),
     (GLOBAL, "gpu.transport.min.mb.s"),
     (GLOBAL, "gpu.pipeline.depth"),
     (GLOBAL, "gpu.pipeline.fanin.us"),

@@ -319,6 +319,7 @@ class Kafka:  # lint: ok shared-state
             self.codec_provider = GpuCodecProvider(
                 device=conf.get("gpu.device"),
                 min_batches=conf.get("gpu.launch.min.batches"),
+                mesh_devices=conf.get("gpu.mesh.devices"),
                 lz4_force=conf.get("gpu.lz4.force"),
                 min_transport_mb_s=conf.get("gpu.transport.min.mb.s"),
                 pipeline_depth=conf.get("gpu.pipeline.depth"),

@@ -27,8 +27,20 @@ reference client gets by pipelining the msgset writer against broker IO:
     adaptive fan-in window sized from the submission inter-arrival EWMA,
     and fused launches: crc32c and legacy-crc32 jobs popped together go
     out as ONE launch with a per-segment polynomial.
-  * One lane per device: its own stream, staging rings, device buffers
-    and in-flight deque; a group goes whole to the least-loaded lane.
+  * One lane per device of the pool (``mesh_devices``: 0 every device,
+    1 one lane, N the first min(N, pool)): its own stream, staging rings,
+    device buffers and in-flight deque; a group goes whole to the
+    least-loaded lane.
+  * Sharded launches: with several lanes, a group of at least
+    ``SHARD_MIN_ROWS`` 64 KB blocks a lane (the JAX engine's decision)
+    splits its packed segments into one contiguous shard a lane, of about
+    equal bytes, cut at segment bounds.  Each shard is filled into a
+    pinned slot of its lane's rings and launched on that lane's stream
+    (parallel/mesh.py, kernel G); the launch rides the whole-mesh
+    pseudo-lane (id -1), every lane records it with its share of the
+    blocks, and the readback waits for every shard before the tickets
+    resolve.  Shards on one card run in series; on several cards they
+    overlap.
   * Bulk readback: one event wait and one vectorized uint32 view per
     launch; the kernel returns whole-buffer CRCs, so there is no 64 KB
     block split and no host-side ``crc32c_combine``.
@@ -53,8 +65,6 @@ weight-ordered dispatch and, only while every lane is saturated, the
 shedding of flood topics to the CPU encoder.  Every CPU route of a
 compress job serves ``cpu_compress_fallback``, the deterministic native
 encoder, whose bytes equal the kernel's.
-
-Left out until its slice: the whole-mesh sharded launches.
 """
 from __future__ import annotations
 
@@ -73,7 +83,8 @@ from ..obs import metrics as _metrics
 from ..obs import trace as _trace
 from . import crc32c_torch as _crc
 from . import lz4_torch as _lz4
-from .packing import LZ4F_BLOCKSIZE, lz4f_frame
+from ..parallel import mesh as _mesh
+from .packing import LZ4F_BLOCKSIZE, lz4f_frame, next_pow2
 
 class Ticket:
     """Handle for one submitted job; resolves to a uint32 ndarray of
@@ -222,12 +233,13 @@ class _Launch:
     """One in-flight launch awaiting readback."""
 
     __slots__ = ("kind", "jobs", "chunks", "ticket", "out_tree", "event",
-                 "t0", "bucket", "lane", "raw")
+                 "t0", "bucket", "lane", "raw", "sharded")
 
     def __init__(self, kind):
         self.kind = kind
         self.jobs: list[_Job] = []
-        self.chunks: list = []                   # (slot, plan) per launch;
+        self.chunks: list = []                   # crc: (slot, plan, lane)
+                                                 # per launch or shard;
                                                  # lz4: (slot, plan, handle)
         self.raw: list = []                      # lz4: the group's buffers
         self.ticket: Optional[Ticket] = None     # compute kind only
@@ -236,13 +248,17 @@ class _Launch:
         self.t0: Optional[float] = None          # launch wall-clock start
         self.bucket: Optional[int] = None        # slot bucket of chunk 0
         self.lane: Optional["_Lane"] = None
+        self.sharded = False                     # split over every lane
 
 
 class _Lane:
     """One per-device dispatch lane: the device and its stream with the
     device buffers the lane reuses (``crc32c_torch.LaneBuffers``), its
     private staging rings, its in-flight launch deque honoring the
-    engine ``depth``, and per-device counters for devices_snapshot."""
+    engine ``depth``, and per-device counters for devices_snapshot.  The
+    whole-mesh sharded launches ride a pseudo-lane (``dev_id`` -1, no
+    device) with the same depth discipline; their shards use the real
+    lanes' rings and streams."""
 
     __slots__ = ("dev_id", "device", "bufs", "staging", "inflight",
                  "launches", "blocks", "jobs", "launch_avg", "rb_stream")
@@ -250,9 +266,11 @@ class _Lane:
     def __init__(self, dev_id: int, device: torch.device, copies: int,
                  launch_avg):
         self.dev_id = dev_id
-        self.device = device
-        self.bufs = _crc.LaneBuffers(device)
-        self.staging = _Staging(copies, pin=device.type == "cuda")
+        self.device = device            # None: the whole-mesh pseudo-lane
+        card = device is not None and device.type == "cuda"
+        self.bufs = _crc.LaneBuffers(device) if device is not None else None
+        self.staging = (_Staging(copies, pin=card) if device is not None
+                        else None)
         self.inflight: deque = deque()  # _Launch records, oldest first
         self.launches = 0
         self.blocks = 0
@@ -260,8 +278,7 @@ class _Lane:
         self.launch_avg = launch_avg    # per-device stage_latency window
         # a card's second stream, for an lz4 launch's bulk readback: the
         # lane's own stream may already hold the next launch
-        self.rb_stream = (torch.cuda.Stream(device)
-                          if device.type == "cuda" else None)
+        self.rb_stream = torch.cuda.Stream(device) if card else None
 
 
 class _Governor:
@@ -572,16 +589,26 @@ class AsyncOffloadEngine:
     _warm_requests = shared("engine.warm_requests")
     _closed = shared("engine.closed")
     _lanes = shared("engine.lanes_list", relaxed=True)
+    _shard_lane = shared("engine.shard_lane", relaxed=True)
     _lanes_ready = shared("engine.lanes_ready", relaxed=True)
     _inflight_cnt = shared("engine.gauge.inflight", relaxed=True)
     _fanin_last = shared("engine.gauge.fanin", relaxed=True)
+
+    #: minimum 64 KB blocks PER LANE before a group splits across the
+    #: lanes (the JAX engine's threshold: below it, whole-to-one-lane
+    #: beats the scatter and gather)
+    SHARD_MIN_ROWS = 8
+    #: the sharded steps the warmup sweep builds (per-shard rows x kind),
+    #: the JAX engine's standard buckets; other shapes warm on demand
+    SHARD_WARM_BUCKETS = (64, 128, 256)
+    WARM_KINDS = ("crc32c", "crc32", "fused")
 
     def __init__(self, *, depth: int = 2, fanin_window_s: float = 0.0005,
                  min_batches: int = 4,
                  cpu_fallback: Optional[Callable] = None,
                  name: str = "gpu-engine",
                  governor: bool = True, warmup: bool = False,
-                 devices=None,
+                 devices=None, mesh_devices: int = 0,
                  cpu_compress_fallback: Optional[Callable] = None):
         # depth: launches kept in flight PER LANE before that lane's
         # oldest is read back
@@ -601,11 +628,15 @@ class AsyncOffloadEngine:
         # a lane not warm yet go to the CPU provider; warmup=False: the
         # dispatch thread builds and loads the kernel inline
         self.warmup_enabled = bool(warmup) and cpu_fallback is not None
-        # one lane per device: every visible card by default; the tests
-        # pass CPU devices.  Lanes (streams, buffers) are created lazily
-        # on the dispatch or warmup thread.
+        # the device pool: every visible card by default; the tests pass
+        # CPU devices.  gpu.mesh.devices picks the lanes from it: 0 every
+        # device, 1 the single lane, N the first min(N, pool).  Lanes
+        # (streams, buffers) are created lazily on the dispatch or warmup
+        # thread.
         self._devices = _resolve_devices(devices)
+        self.mesh_devices = int(mesh_devices)
         self._lanes: list[_Lane] = []
+        self._shard_lane: Optional[_Lane] = None
         self._lanes_ready = False
         self._lanes_lock = new_lock("engine.lanes")
         self._lock = new_lock("engine.queue")
@@ -631,9 +662,7 @@ class AsyncOffloadEngine:
              "fanin_skips": 0, "warmup_miss_jobs": 0,
              "warmup_compiled": 0, "routed_cpu_jobs": 0,
              "explore_routes": 0, "fused_launches": 0,
-             # the JAX engine's mesh-sharded launches: the port has no
-             # sharded route yet (one lane per card), so it stays 0 and
-             # the statistics JSON keeps the reference's key tree
+             # launches split over every lane (the whole-mesh route)
              "sharded_launches": 0})
         # the device compress route's counters, kept apart from the CRC
         # stats (same discipline: dispatch-thread writes, snapshot reads)
@@ -766,7 +795,9 @@ class AsyncOffloadEngine:
         Ticket.result().  The staging rings are released once the
         dispatch thread has exited, and the compress kernel's warm
         registry with them (lz4_torch.release_device_kernels: no warm
-        state outlives the engine)."""
+        state outlives the engine); an engine of several lanes also
+        releases the sharded steps (parallel/mesh.py
+        release_step_cache)."""
         with self._cond:
             self._closed = True
             self._cond.notify()
@@ -777,6 +808,8 @@ class AsyncOffloadEngine:
             # exits — deterministic drain, no leak
             self._warmup_thread.join(timeout)
         _lz4.release_device_kernels()
+        if self._shard_lane is not None:
+            _mesh.release_step_cache()
         if self._thread.is_alive():
             # join timed out: the dispatch thread is wedged.  Fail every
             # job still visible so waiters unblock; first-resolution-wins
@@ -882,26 +915,38 @@ class AsyncOffloadEngine:
     # ------------------------------------------------------------- lanes --
     def _get_lanes(self) -> list:
         """Resolve the per-device dispatch lanes (dispatch/warmup thread:
-        creates the lanes' streams)."""
+        creates the lanes' streams).  ``mesh_devices`` 0 takes every
+        device of the pool; more than one lane also creates the
+        whole-mesh pseudo-lane that tracks sharded launches."""
         if self._lanes_ready:
             return self._lanes
         with self._lanes_lock:
             if self._lanes_ready:
                 return self._lanes
+            pool = self._devices
+            n = (len(pool) if self.mesh_devices <= 0
+                 else min(self.mesh_devices, len(pool)))
             self._lanes = [_Lane(i, d, self.depth + 1, self._Avg())
-                           for i, d in enumerate(self._devices)]
+                           for i, d in enumerate(pool[:n])]
+            if n > 1:
+                self._shard_lane = _Lane(-1, None, self.depth + 1,
+                                         self._Avg())
             self._lanes_ready = True
         return self._lanes
 
+    def _all_lanes(self) -> list:
+        return (self._lanes + [self._shard_lane]
+                if self._shard_lane is not None else self._lanes)
+
     def _inflight_total(self) -> int:
-        return sum(len(ln.inflight) for ln in self._lanes)
+        return sum(len(ln.inflight) for ln in self._all_lanes())
 
     def _oldest_lane(self) -> Optional[_Lane]:
         """The lane holding the oldest in-flight launch (drain order: by
         dispatch time across lanes, so no lane's results are held hostage
         behind a busier one)."""
         best = None
-        for ln in self._lanes:
+        for ln in self._all_lanes():
             if not ln.inflight:
                 continue
             if best is None or ((ln.inflight[0].t0 or 0.0)
@@ -929,10 +974,15 @@ class AsyncOffloadEngine:
     def _warmup_main(self):
         """Low-priority sweep warming every lane in order (lane 0 first):
         its first pinned slots, then the kernel (crc32c_torch.warm_kernel:
-        build, constants, one launch on zeros); lanes the dispatch thread
-        missed on jump the queue.  Exits when the sweep is complete or the
-        engine closes."""
+        build, constants, one launch on zeros); then, with several lanes,
+        the sharded steps of the standard buckets.  Items the dispatch
+        thread missed on jump the queue.  Exits when the sweep is complete
+        or the engine closes."""
         lanes = self._get_lanes()
+        sweep: list = list(range(len(lanes)))
+        if len(lanes) > 1:
+            sweep += [("shard", Bs, kind) for Bs in self.SHARD_WARM_BUCKETS
+                      for kind in self.WARM_KINDS]
         i = 0
         while True:
             with self._lock:
@@ -941,12 +991,15 @@ class AsyncOffloadEngine:
                 item = (self._warm_requests.popleft()
                         if self._warm_requests else None)
             if item is None:
-                if i >= len(lanes):
+                if i >= len(sweep):
                     return
-                item = i
+                item = sweep[i]
                 i += 1
             if isinstance(item, tuple):
-                self._warm_lz4(lanes[item[1]])
+                if item[0] == "lz4":
+                    self._warm_lz4(lanes[item[1]])
+                else:
+                    self._warm_shard(lanes, item[1], item[2])
                 continue
             lane = lanes[item]
             if _crc.kernel_ready(lane.device) or item in self._warm_failed:
@@ -962,6 +1015,25 @@ class AsyncOffloadEngine:
             # the dispatch thread
             with self._lock:
                 self.stats["warmup_compiled"] += 1
+
+    def _warm_shard(self, lanes: list, Bs: int, kind: str) -> None:
+        """The warmup thread's ("shard", Bs, kind) item: build the sharded
+        CRC step over every lane (parallel/mesh.py warm_sharded_crc).  A
+        lane whose warmup failed keeps the split closed; a failing build
+        leaves the shape on the whole-lane route."""
+        devices = [ln.device for ln in lanes]
+        if (_mesh.sharded_crc_ready(devices, Bs, _crc.BLOCK, kind)
+                or any(ln.dev_id in self._warm_failed for ln in lanes)):
+            return
+        try:
+            _mesh.warm_sharded_crc(devices, Bs, _crc.BLOCK, kind)
+        except Exception:
+            # the warmup thread must keep running; a card that cannot
+            # build or launch has failed its lane's warmup already, and
+            # the groups of this shape stay whole
+            return
+        with self._lock:
+            self.stats["warmup_compiled"] += 1
 
     def _warm_lz4(self, lane: _Lane) -> None:
         """The warmup thread's compress item: build, constants and one
@@ -990,7 +1062,7 @@ class AsyncOffloadEngine:
             exc = RuntimeError("offload engine dispatch thread exited")
             for j in stranded:
                 j.ticket._fail(exc)
-            for lane in self._lanes:
+            for lane in self._all_lanes():
                 for rec in lane.inflight:
                     if rec.kind in ("crc", "lz4"):
                         for j in rec.jobs:
@@ -1246,6 +1318,47 @@ class AsyncOffloadEngine:
             start = stop
         return out
 
+    @staticmethod
+    def _shard_bucket(nrows: int, ndev: int) -> int:
+        """Per-shard rows of a sharded chunk of ``nrows`` 64 KB blocks over
+        ``ndev`` lanes, the JAX engine's bucket (its step-cache key): the
+        next power of two from SHARD_MIN_ROWS, at least 128 once a shard
+        holds 64 rows."""
+        rows = -(-nrows // ndev)
+        Bs = next_pow2(rows, lo=AsyncOffloadEngine.SHARD_MIN_ROWS)
+        if rows >= 64:
+            Bs = max(Bs, 128)
+        return Bs
+
+    @staticmethod
+    def _shard_chunks(lens: np.ndarray, ndev: int) -> list:
+        """A sharded group's launches: at most ``ndev`` x LAUNCH_BYTES of
+        buffers each (a larger buffer alone), each cut into ``ndev``
+        contiguous shards of about equal bytes at buffer bounds.  Returns
+        (cuts, Bs) per launch: shard j holds buffers [cuts[j],
+        cuts[j + 1]); Bs is :meth:`_shard_bucket` of its blocks."""
+        ends = np.cumsum(lens)
+        blocks = (lens + _crc.BLOCK - 1) // _crc.BLOCK
+        out, start = [], 0
+        while start < len(lens):
+            base = int(ends[start] - lens[start])
+            stop = max(start + 1, int(np.searchsorted(
+                ends, base + _crc.LAUNCH_BYTES * ndev, side="right")))
+            # rel[i]: the bytes of the launch's first i buffers
+            rel = np.concatenate([[0], ends[start:stop] - base])
+            cuts = [start]
+            for j in range(1, ndev):
+                target = rel[-1] * j / ndev
+                k = min(int(np.searchsorted(rel, target)), len(rel) - 1)
+                if k > 0 and target - rel[k - 1] <= rel[k] - target:
+                    k -= 1          # the nearer buffer bound
+                cuts.append(max(cuts[-1], start + k))
+            cuts.append(stop)
+            out.append((cuts, AsyncOffloadEngine._shard_bucket(
+                int(blocks[start:stop].sum()), ndev)))
+            start = stop
+        return out
+
     def _launch_crc(self, group: list[_Job]) -> Optional[_Launch]:
         self.stats["jobs"] += len(group)
         if len(group) > 1:
@@ -1265,30 +1378,57 @@ class AsyncOffloadEngine:
         polys = ({j.poly for j in group if int(j.lens.sum())}
                  or {group[0].poly})
         mixed = len(polys) > 1
-        chunks = self._chunks(lens)
-        bucket = (_crc.slot_bucket(int(lens[slice(*chunks[0])].sum()))
-                  if chunks else None)
+        kind = "fused" if mixed else next(iter(polys))
 
         lanes = self._get_lanes()
-        if self.warmup_enabled:
-            # warmup gate, per lane: route to any warm lane; with none
-            # warm, CPU serves and the picked lane jumps the warmup
-            # queue.  A lane whose warmup failed never opens: when every
-            # lane failed, the group fails with that error.
-            ok = [ln for ln in lanes if _crc.kernel_ready(ln.device)]
-            if not ok:
-                failed = [self._warm_failed.get(ln.dev_id) for ln in lanes]
-                if all(failed):
-                    raise failed[0]
-                want = self._pick_lane(
-                    [ln for ln, f in zip(lanes, failed) if f is None],
-                    bucket)
-                self._request_warm(want.dev_id)
-                self._serve_cpu(group, "warmup_miss_jobs")
-                return None
+        ndev = len(lanes)
+        # the sharded route, the JAX engine's decision: a group of at
+        # least SHARD_MIN_ROWS blocks a lane splits over every lane
+        shard = ndev > 1 and nblocks >= ndev * self.SHARD_MIN_ROWS
+        if shard:
+            schunks = self._shard_chunks(lens, ndev)
+            devices = [ln.device for ln in lanes]
+            if self.warmup_enabled:
+                missing = sorted({Bs for _, Bs in schunks
+                                  if not _mesh.sharded_crc_ready(
+                                      devices, Bs, _crc.BLOCK, kind)})
+                if missing:
+                    # the step is not built yet: whole to one lane (never
+                    # stall), and ask for it
+                    for Bs in missing:
+                        self._request_warm(("shard", Bs, kind))
+                    shard = False
+        if shard:
+            lane = self._shard_lane
+            # the slot bucket of the first launch's largest shard
+            cuts = schunks[0][0]
+            ends = np.concatenate([[0], np.cumsum(lens)])
+            bucket = _crc.slot_bucket(int(max(
+                ends[b] - ends[a] for a, b in zip(cuts, cuts[1:]))))
         else:
-            ok = lanes
-        lane = self._pick_lane(ok, bucket)
+            chunks = self._chunks(lens)
+            bucket = (_crc.slot_bucket(int(lens[slice(*chunks[0])].sum()))
+                      if chunks else None)
+            if self.warmup_enabled:
+                # warmup gate, per lane: route to any warm lane; with none
+                # warm, CPU serves and the picked lane jumps the warmup
+                # queue.  A lane whose warmup failed never opens: when
+                # every lane failed, the group fails with that error.
+                ok = [ln for ln in lanes if _crc.kernel_ready(ln.device)]
+                if not ok:
+                    failed = [self._warm_failed.get(ln.dev_id)
+                              for ln in lanes]
+                    if all(failed):
+                        raise failed[0]
+                    want = self._pick_lane(
+                        [ln for ln, f in zip(lanes, failed) if f is None],
+                        bucket)
+                    self._request_warm(want.dev_id)
+                    self._serve_cpu(group, "warmup_miss_jobs")
+                    return None
+            else:
+                ok = lanes
+            lane = self._pick_lane(ok, bucket)
         explored = False
         if self.governor.enabled and self.cpu_fallback is not None:
             route, explored = self.governor.route(bucket, int(lens.sum()))
@@ -1302,6 +1442,7 @@ class AsyncOffloadEngine:
         rec.jobs = group
         rec.lane = lane
         rec.bucket = bucket
+        rec.sharded = shard
         # submit->launch wait: the queue + fan-in share of each job's
         # pipeline latency (stage_latency.submit_wait)
         t_launch = time.perf_counter()
@@ -1316,19 +1457,44 @@ class AsyncOffloadEngine:
         if mixed:
             self.stats["fused_launches"] += 1
         self.stats["blocks"] += nblocks
-        lane.launches += 1
-        lane.blocks += nblocks
-        lane.jobs += len(group)
-        self._launch_crc_lane(rec, lane, group, lens, chunks)
+        if shard:
+            self.stats["sharded_launches"] += 1
+            self._launch_crc_sharded(rec, lanes, group, lens, schunks, kind)
+        else:
+            lane.launches += 1
+            lane.blocks += nblocks
+            lane.jobs += len(group)
+            self._launch_crc_lane(rec, lane, group, lens, chunks)
         if tr0:
             # the async dispatch span; governor + lane decisions ride the
-            # args
+            # args (device: the lane id, or -1 for a sharded launch)
             _trace.complete("engine", "device_launch", tr0,
                             {"route": "device", "explored": explored,
                              "fused": mixed, "bucket": bucket,
                              "blocks": nblocks, "jobs": len(group),
-                             "device": lane.dev_id})
+                             "device": lane.dev_id, "sharded": shard})
         return rec
+
+    @staticmethod
+    def _slicer(group: list[_Job], lens: np.ndarray):
+        """(sel per buffer, pieces(a, b)): the polynomial of each of the
+        group's buffers, and the bytes of buffers [a, b) as views of the
+        jobs' joined snapshots, with no copy."""
+        sel = np.repeat(np.array([_crc.POLYS.index(j.poly) for j in group],
+                                 dtype=np.int32),
+                        [len(j.lens) for j in group])
+        # each job's joined bytes start at its buffers' first offset
+        datas = [j.data for j in group]
+        starts = np.cumsum([0] + [len(d) for d in datas])[:-1].tolist()
+        ends = np.cumsum(lens)
+
+        def pieces(a: int, b: int) -> list:
+            lo, hi = int(ends[a] - lens[a]), int(ends[b - 1])
+            return [memoryview(d)[max(lo, s) - s:min(hi, s + len(d)) - s]
+                    for d, s in zip(datas, starts)
+                    if s + len(d) > lo and s < hi]
+
+        return sel, pieces
 
     def _launch_crc_lane(self, rec: _Launch, lane: _Lane,
                          group: list[_Job], lens: np.ndarray,
@@ -1337,30 +1503,55 @@ class AsyncOffloadEngine:
         slot of the lane's rings, copied in one non-blocking H2D on the
         lane's stream and launched there; nothing here waits on the card
         (but a slot still read by an earlier launch)."""
-        sel = np.repeat(np.array([_crc.POLYS.index(j.poly) for j in group],
-                                 dtype=np.int32),
-                        [len(j.lens) for j in group])
-        # each job's joined bytes start at its buffers' first offset
-        datas = [j.data for j in group]
-        starts = np.cumsum([0] + [len(d) for d in datas])
-        ends = np.cumsum(lens)
+        sel, pieces = self._slicer(group, lens)
         for a, b in chunks:
-            lo, hi = int(ends[a] - lens[a]), int(ends[b - 1])
-            pieces = []
-            for d, s in zip(datas, starts[:-1].tolist()):
-                if s + len(d) > lo and s < hi:
-                    pieces.append(memoryview(d)[max(lo, s) - s:
-                                                min(hi, s + len(d)) - s])
             plan = _crc.plan_slot(lens[a:b], sel[a:b])
             slot = lane.staging.take(plan.nbytes)
-            rec.chunks.append((slot, plan))
+            rec.chunks.append((slot, plan, lane))
             try:
-                _crc.fill_slot(slot, plan, pieces)
+                _crc.fill_slot(slot, plan, pieces(a, b))
                 _crc.send_slot(slot, plan, lane.bufs)
                 _crc.launch_slot(slot, plan, lane.bufs)
             except BaseException:
-                lane.staging.give_back([s for s, _ in rec.chunks])
+                self._give_back(rec)
                 raise
+
+    def _launch_crc_sharded(self, rec: _Launch, lanes: list,
+                            group: list[_Job], lens: np.ndarray,
+                            schunks: list, kind: str) -> None:
+        """Whole-mesh dispatch (kernel G): each launch's shard j is filled
+        into a slot of lane j's rings, copied on lane j's stream and
+        launched there through the sharded step (parallel/mesh.py), so
+        shards on several cards overlap.  Every lane records the shared
+        launch and its share of the blocks.  A shard that cannot build or
+        launch fails the whole group: no shard goes to the CPU."""
+        sel, pieces = self._slicer(group, lens)
+        blocks = (lens + _crc.BLOCK - 1) // _crc.BLOCK
+        devices = [ln.device for ln in lanes]
+        for cuts, Bs in schunks:
+            _, step = _mesh.sharded_crc_step(devices, Bs, _crc.BLOCK, kind)
+            for j, ln in enumerate(lanes):
+                a, b = cuts[j], cuts[j + 1]
+                ln.launches += 1
+                ln.blocks += int(blocks[a:b].sum())
+                if a == b:
+                    continue
+                plan = _crc.plan_slot(lens[a:b], sel[a:b])
+                slot = ln.staging.take(plan.nbytes)
+                rec.chunks.append((slot, plan, ln))
+                try:
+                    _crc.fill_slot(slot, plan, pieces(a, b))
+                    _crc.send_slot(slot, plan, ln.bufs)
+                    step.launch_slot(slot, plan, ln.bufs)
+                except BaseException:
+                    self._give_back(rec)
+                    raise
+
+    @staticmethod
+    def _give_back(rec: _Launch) -> None:
+        """Return a CRC launch's slots to their lanes' rings."""
+        for slot, _, ln in rec.chunks:
+            ln.staging.give_back([slot])
 
     def _launch_lz4(self, group: list[_Job]) -> Optional[_Launch]:
         """The device compress route: a group's buffers cut into 64 KB
@@ -1378,7 +1569,7 @@ class AsyncOffloadEngine:
         # whole group
         if can_cpu and len(group) > 1 and self._lanes_ready:
             saturated = (self._inflight_total()
-                         >= self.depth * len(self._lanes))
+                         >= self.depth * len(self._all_lanes()))
             shed = self.governor.shed_topics(saturated)
             if shed:
                 shed_jobs = [j for j in group
@@ -1563,21 +1754,26 @@ class AsyncOffloadEngine:
 
     def _readback_crc(self, rec: _Launch) -> None:
         tr0 = _trace.now() if _trace.enabled else 0
-        # ONE event wait + vectorized uint32 view per launch — no
-        # per-item int(x) loop
+        # ONE event wait + vectorized uint32 view per launch (per shard
+        # of a sharded one, every shard waited before any ticket
+        # resolves) — no per-item int(x) loop
         try:
-            parts = [_crc.read_slot(slot, plan) for slot, plan in rec.chunks]
+            parts = [_crc.read_slot(slot, plan)
+                     for slot, plan, _ in rec.chunks]
         finally:
-            rec.lane.staging.give_back([s for s, _ in rec.chunks])
+            self._give_back(rec)
         crcs = (parts[0] if len(parts) == 1 else
                 np.concatenate(parts) if parts else
                 np.zeros(0, dtype=np.uint32))
         # launch latency feeds the governor's per-(lane, bucket) model
-        # AND the stage_latency.launch window (dispatch -> bulk sync)
+        # AND the stage_latency.launch window (dispatch -> bulk sync); a
+        # sharded launch records under every lane (the whole mesh was
+        # busy for that window)
         if rec.t0 is not None:
             dt = time.perf_counter() - rec.t0
-            self.governor.note_device(rec.bucket, dt, rec.lane.dev_id)
-            rec.lane.launch_avg.add(dt * 1e6)
+            for ln in (self._lanes if rec.sharded else [rec.lane]):
+                self.governor.note_device(rec.bucket, dt, ln.dev_id)
+                ln.launch_avg.add(dt * 1e6)
             self.stage_launch.add(dt * 1e6)
         t_reap = time.perf_counter()
         if tr0:

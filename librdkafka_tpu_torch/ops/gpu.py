@@ -25,8 +25,10 @@ checksums and, when asked for, the lz4 compression leave the host:
     native codec on the dispatch thread, in QoS weight order.
   * ``compress_many`` with ``lz4_force`` (``tpu.lz4.force``): the
     synchronous device route, every 64 KB block of every buffer in one
-    launch (``lz4_torch.lz4_block_compress_many``), frames assembled on
-    the host; same bytes as the deterministic native encoder.
+    launch (``lz4_torch.lz4_block_compress_many``), or with
+    ``mesh_devices`` > 1 one launch a device of the mesh
+    (parallel/mesh.py ``shard_compress``), frames assembled on the host;
+    same bytes as the deterministic native encoder.
   * ``decompress_submit``: engine host jobs running the native CPU
     decoders on the dispatch thread, overlapping the in-flight launches.
 
@@ -47,7 +49,13 @@ from . import crc32c_torch
 from . import lz4_torch
 from ..analysis.locks import new_lock
 from ..analysis.races import shared
+from ..parallel import mesh as _par_mesh
 from .packing import LZ4F_BLOCKSIZE, lz4f_frame
+
+#: the device pool of ``device="cpu"``: eight lanes of the plain version,
+#: the device count the JAX package's tests give its CPU backend
+#: (tests/conftest.py, --xla_force_host_platform_device_count=8)
+CPU_POOL = 8
 
 #: the probe body, run OUT OF PROCESS (see _probe_transport): a pinned
 #: host-to-device copy and its way back, timed after one warm round trip;
@@ -92,7 +100,14 @@ class GpuCodecProvider:
     ``fanin_us=500``, ``governor=True``, ``warmup=True``,
     ``min_transport_mb_s=100`` (0 disables the gate), and the device lz4
     routes off: ``compress_device=False`` (the engine's compress route)
-    and ``lz4_force=False`` (the synchronous one)."""
+    and ``lz4_force=False`` (the synchronous one).
+
+    ``mesh_devices`` (``gpu.mesh.devices``) picks the engine's lanes from
+    the device pool: 0 every device, 1 one lane, N the first min(N,
+    pool).  The pool of ``cuda`` is the visible cards, of ``cuda:N`` that
+    card, of ``cpu`` :data:`CPU_POOL` lanes; the knob never repeats a
+    card.  Above 1 it also shards the ``lz4_force`` route over a mesh of
+    as many devices."""
 
     name = "gpu"
     #: the writer phase may pass per-buffer (topic, weight) QoS pairs to
@@ -103,12 +118,13 @@ class GpuCodecProvider:
     # is created once under gpu.engine_init and only READ lock-free
     # afterwards (object-reference loads are atomic)
     _engine = shared("gpu.engine", relaxed=True)
+    _mesh = shared("gpu.mesh", relaxed=True)
 
     def __init__(self, min_batches: int = 4, device=None,
                  warmup: bool = True, min_transport_mb_s: float = 100.0,
                  pipeline_depth: int = 2, fanin_us: int = 500,
                  governor: bool = True, compress_device: bool = False,
-                 lz4_force: bool = False):
+                 lz4_force: bool = False, mesh_devices: int = 0):
         # below this many independent buffers a launch isn't worth it;
         # fall back to the CPU provider (identical bytes either way).
         self.min_batches = max(1, int(min_batches))
@@ -124,6 +140,8 @@ class GpuCodecProvider:
         # compress route; tpu.lz4.force: compress_many's lz4 on the card
         self.compress_device = bool(compress_device)
         self.lz4_force = bool(lz4_force)
+        self.mesh_devices = int(mesh_devices or 0)
+        self._mesh = None
         self._engine = None
         self._engine_closed = False
         self._engine_lock = new_lock("gpu.engine_init")
@@ -202,7 +220,12 @@ class GpuCodecProvider:
             for pos in range(0, len(mv), LZ4F_BLOCKSIZE):
                 blocks.append(mv[pos:pos + LZ4F_BLOCKSIZE])
             spans.append((first, len(blocks) - first))
-        cblocks = lz4_torch.lz4_block_compress_many(blocks, self.device)
+        mesh = self._get_mesh()
+        if mesh is not None:
+            cblocks, _, _ = _par_mesh.shard_compress(mesh, blocks,
+                                                     with_crc=False)
+        else:
+            cblocks = lz4_torch.lz4_block_compress_many(blocks, self.device)
         # the frame's part CRCs are not needed here: 0 stands in for them
         return [bytes(lz4f_frame([(cblocks[i], 0, blocks[i], 0)
                                   for i in range(first, first + nb)]))
@@ -321,6 +344,25 @@ class GpuCodecProvider:
         return self._cpu.fused_codec_id(codec)
 
     # ------------------------------------------------- pipelined offload --
+    def _pool(self) -> list:
+        """The devices the lanes are taken from (see the class doc)."""
+        if self.device.type == "cpu":
+            return [self.device] * CPU_POOL
+        if self.device.index is None:
+            return [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+        return [self.device]
+
+    def _get_mesh(self):
+        """The lz4_force route's mesh: the first min(mesh_devices, pool)
+        devices, when that is more than one."""
+        if self._mesh is None and self.mesh_devices > 1:
+            pool = self._pool()
+            n = min(self.mesh_devices, len(pool))
+            if n > 1:
+                self._mesh = _par_mesh.make_mesh(n, pool)
+        return self._mesh
+
     def _get_engine(self):
         """The async offload engine (ops/engine.py), created on first
         use.  None when ``pipeline_depth=0`` or after close()."""
@@ -339,8 +381,8 @@ class GpuCodecProvider:
                         name="gpu-codec-engine",
                         governor=self.governor,
                         warmup=self.warmup,
-                        devices=(None if self.device == torch.device("cuda")
-                                 else [self.device]))
+                        devices=self._pool(),
+                        mesh_devices=self.mesh_devices)
         return self._engine
 
     def _cpu_crc_fallback(self, bufs, poly: str) -> list[int]:
@@ -359,7 +401,9 @@ class GpuCodecProvider:
         """Tear down the async engine (drains in-flight launches) and
         join the warmup thread; the provider keeps serving synchronously
         afterwards — a straggling codec job must not respawn a dispatch
-        thread post-close."""
+        thread post-close.  A provider that built an lz4 mesh also
+        releases the sharded steps (parallel/mesh.py
+        release_step_cache)."""
         with self._engine_lock:
             self._engine_closed = True
             eng, self._engine = self._engine, None
@@ -368,6 +412,9 @@ class GpuCodecProvider:
         if self._warmup_thread is not None:
             self._warmup_thread.join(30.0)
             self._warmup_thread = None
+        if self._mesh is not None:
+            self._mesh = None
+            _par_mesh.release_step_cache()
 
 
 def _probe_cached(device: str, ttl: float = 900.0) -> float:

@@ -48,7 +48,7 @@ from librdkafka_tpu_torch.protocol.proto import OFFSET_BEGINNING, ApiKey
 NOW_MS = 1_700_000_000_000
 
 #: JAX-package conf keys with no counterpart in the port
-NO_TWIN = ("tpu.compile.cache.dir", "tpu.mesh.devices")
+NO_TWIN = ("tpu.compile.cache.dir",)
 
 
 def port_conf(ref: dict, device: str = "cpu") -> dict:
@@ -105,7 +105,7 @@ def test_conf_gpu_knobs_twin_the_tpu_knobs():
     port = {p.name: p for p in port_conf_mod.PROPERTIES
             if p.scope == "global"}
     twins = [n for n in ref if n.startswith("tpu.") and n not in NO_TWIN]
-    assert len(twins) == 9
+    assert len(twins) == 10
     for name in twins:
         r, g = ref[name], port["gpu." + name[len("tpu."):]]
         assert (g.ptype, g.default, g.vmin, g.vmax, g.app, g.enum) == (
@@ -128,7 +128,7 @@ def test_conf_gpu_knobs_twin_the_tpu_knobs():
                       "tpu.mesh.devices": 2, "tpu.compile.cache.dir": "/x",
                       "linger.ms": 5}) == {
         "compression.backend": "gpu", "gpu.governor": False,
-        "linger.ms": 5, "gpu.device": "cpu"}
+        "gpu.mesh.devices": 2, "linger.ms": 5, "gpu.device": "cpu"}
 
 
 def test_qos_weight_conf_roundtrip():

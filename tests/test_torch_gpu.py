@@ -8,7 +8,9 @@ flight, first launches from two threads), and the LZ4 kernel
 (csrc/lz4_rows.cu) against its plain version and the native encoder in
 every ``with_crc`` mode (with the edge rows of its stages), its two CTAs
 an SM and its stage clocks, beside a CRC launch on another stream, and
-through the engine's compress route.  Marked ``gpu``; each skips on a
+through the engine's compress route, and the sharded steps (kernels G
+and H of parallel/mesh.py) on four shards of the visible cards, through
+the engine and the entry points.  Marked ``gpu``; each skips on a
 host without CUDA.  On a card (tests/conftest.py imports jax, which the
 GPU host lacks):
 
@@ -596,3 +598,119 @@ def test_hot_topic_flood_qos_isolation_on_card(card):
     assert bulk_acked[0] > 0
     assert comp["launches"] > 0, comp
     assert comp["qos"]["qos-latency"]["weight"] == 8.0, comp
+
+
+# ------------------------------------------------ kernels G and H (mesh) --
+
+def _card_pool(card, k=4):
+    """k shards on the visible cards: the first k cards when there are
+    that many, else k shards of card 0 (in series on one card)."""
+    n = torch.cuda.device_count()
+    return ([f"cuda:{i}" for i in range(k)] if n >= k
+            else ["cuda:0"] * k)
+
+
+@pytest.mark.parametrize("kind", ["crc32c", "crc32", "fused"])
+def test_sharded_crc_step_equals_plain_and_oracle(card, kind):
+    """Kernel G on four shards: one crc_rows.cu launch a shard, equal to
+    the per-shard plain version and the oracles."""
+    from librdkafka_tpu_torch.parallel import mesh
+    rng = np.random.default_rng(len(kind))
+    Bs, N = 8, 65536
+    pool = _card_pool(card)
+    B = Bs * len(pool)
+    bufs = [rng.integers(0, 256, int(n), dtype=np.uint8).tobytes()
+            for n in rng.integers(0, N + 1, B)]
+    polys = ([kind] * B if kind != "fused"
+             else [crc.POLYS[i % 2] for i in range(B)])
+    data, _ = pad_left(bufs, N)
+    sel = np.array([p == "crc32" for p in polys], np.uint32)
+    terms = np.array([crc._term_host(len(b), p)
+                      for b, p in zip(bufs, polys)], np.uint32)
+    try:
+        m, step = mesh.sharded_crc_step(pool, Bs, N, kind)
+        before = mesh.crc_launches
+        got = step(data, terms, sel) if kind == "fused" else step(data, terms)
+        assert mesh.crc_launches == before + len(pool)
+        want = [native.crc32c(b) if p == "crc32c"
+                else zlib.crc32(b) & 0xFFFFFFFF for b, p in zip(bufs, polys)]
+        assert got.tolist() == want
+        assert mesh.sharded_crc_reference(m, data, terms,
+                                          sel).tolist() == want
+    finally:
+        mesh.release_step_cache()
+
+
+@pytest.mark.parametrize("with_crc", [True, False])
+def test_shard_compress_equals_plain_and_native(card, with_crc):
+    """Kernel H on four shards, B not a multiple of four: one lz4_rows.cu
+    launch a shard, the native block encoder's bytes, the plain version's
+    rows, native CRCs and the summed lengths."""
+    from librdkafka_tpu_torch.ops.packing import next_pow2, pad_right
+    from librdkafka_tpu_torch.parallel import mesh
+    rng = np.random.default_rng(7)
+    blocks = [rng.integers(0, 4, int(n), dtype=np.uint8).tobytes()
+              for n in rng.integers(0, 65537, 23)]
+    m = mesh.make_mesh(devices=_card_pool(card))
+    try:
+        before = mesh.codec_launches
+        outs, crcs, total = mesh.shard_compress(m, blocks, with_crc)
+        assert mesh.codec_launches == before + 4
+        assert outs == [native.lz4_block_compress(b) for b in blocks]
+        N = next_pow2(max(len(b) for b in blocks))
+        data, lens = pad_right(blocks + [b""], N)
+        valid = np.array([1] * len(blocks) + [0], np.int32)
+        comp, olen, pcrc, ptotal = mesh.sharded_codec_reference(
+            m, data, lens, valid, with_crc)
+        assert [comp[i, :olen[i]].tobytes()
+                for i in range(len(blocks))] == outs
+        if with_crc:
+            assert crcs.tolist() == [native.crc32c(b) for b in blocks]
+            assert pcrc[:len(blocks)].tolist() == crcs.tolist()
+            assert total == ptotal == sum(len(o) for o in outs)
+        else:
+            assert crcs is None and total == 0
+    finally:
+        mesh.release_step_cache()
+
+
+def test_engine_sharded_launch_on_card(card):
+    """The engine on two lanes of the pool shards a 17-block group: one
+    crc_rows.cu launch a shard from each lane's pinned ring, exact, every
+    lane records it; close releases the step."""
+    from librdkafka_tpu_torch.ops.engine import AsyncOffloadEngine
+    from librdkafka_tpu_torch.parallel import mesh
+    pool = _card_pool(card, 2)
+    eng = AsyncOffloadEngine(depth=2, min_batches=1, governor=False,
+                             devices=pool, cpu_fallback=None)
+    try:
+        rng = np.random.default_rng(27)
+        bufs = [rng.integers(0, 256, 65536, dtype=np.uint8).tobytes()
+                for _ in range(16)] + [b"tail-block" * 7]
+        eng.submit([b"warm"], "crc32c", window=False).result(300)
+        before = mesh.crc_launches
+        got = eng.submit(bufs, "crc32c", window=False).result(300)
+        assert got.tolist() == [native.crc32c(b) for b in bufs]
+        assert mesh.crc_launches == before + 2
+        assert eng.stats["sharded_launches"] == 1
+        assert all(r["launches"] >= 1 for r in eng.devices_snapshot())
+        assert all(ln.staging.pin for ln in eng._lanes)
+    finally:
+        eng.close()
+    assert mesh.step_cache_count() == 0
+
+
+def test_entry_points_on_card(card):
+    from librdkafka_tpu_torch.entry import dryrun_multichip, entry
+    from librdkafka_tpu_torch.ops import lz4_torch
+    from librdkafka_tpu_torch.parallel import mesh
+    step, (data, lens) = entry()
+    assert data.device.type == "cuda"
+    out, olen, crcs = step(data, lens)
+    want = lz4_torch.lz4_rows_reference(data, lens, "raw")
+    assert torch.equal(olen, want[1]) and torch.equal(crcs, want[3])
+    assert torch.equal(out, want[0])
+    try:
+        dryrun_multichip(4, devices=_card_pool(card))
+    finally:
+        mesh.release_step_cache()
