@@ -96,7 +96,20 @@ Producer with gpu.mesh.devices=0 through ``python -m
 librdkafka_tpu_torch.mock.standalone`` (its own process, killed and
 reaped on every exit) and a check.crcs Consumer, 3 x 64 x 1,600 x 1 KB,
 its msgs/s beside phase 6b's; then G's and H's host-clock step times
-beside their plain versions and bounds.  Any mismatch exits non-zero.
+beside their plain versions and bounds.  Phase 8 drives the robustness
+tier through the port's entry points at the JAX package's sizes: (a)
+``analysis.stress.run_stress()`` with its device legs on the card, every
+leg under lockdep, the report clean, the engine leg launching the CRC
+kernel and the device-codec leg the LZ4 kernel (each leg's seconds and
+launches printed); (b) ``chaos.scenarios.hot_topic_flood(seed=17)``:
+isolation holds, every bulk message is delivered and the compress route
+launched (its jobs split into launched, warmup misses and CPU routes;
+the collector's pauses during the flood printed); (c)
+``fast_external_kill9(seed=23)`` and (d) ``fleet_smoke(seed=51)``:
+delivery verified, pid-verified SIGKILLs, and every child process (the
+supervisor, each broker relay, each fleet worker) the port's by its
+/proc command line, none left behind.  (a)'s and (b)'s launches add to
+the kernels line.  Any mismatch exits non-zero.
 
 The last two lines of standard output are a ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -104,6 +117,7 @@ result, when no CUDA device is available.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -2018,6 +2032,225 @@ def phase_mesh(p5: dict, p6: dict) -> dict:
             "H": {"ms": h_ms, "plain_ms": h_plain, "bound_ms": h_bound,
                   "bound_by": h_by}}
 
+# ---------------------------------------------------------------- phase 8 --
+
+P8_LEGS = ("_engine_pipeline_leg", "_devcodec_leg", "_txn_leg",
+           "_chaos_leg", "_external_storm_leg", "_fleet_leg",
+           "_session_leg", "_fastlane_leg")
+
+
+def p8_children() -> tuple:
+    """Record the command line of every child the port's subprocess
+    registry takes in (supervisors, broker relays, fleet workers), read
+    from /proc when it is registered; returns (pid -> (role, argv),
+    restore)."""
+    from librdkafka_tpu_torch.mock import external
+    seen: dict = {}
+    register = external._register
+
+    def recording(pids):
+        register(pids)
+        for pid, what in pids.items():
+            argv: list = []
+            deadline = time.monotonic() + 5.0
+            while not argv and time.monotonic() < deadline:
+                try:
+                    with open(f"/proc/{pid}/cmdline", "rb") as f:
+                        argv = [a.decode() for a in f.read().split(b"\0")
+                                if a]
+                except OSError:
+                    break
+                if not argv:
+                    time.sleep(0.01)
+            seen[pid] = (what, argv)
+
+    external._register = recording
+
+    def restore():
+        external._register = register
+    return seen, restore
+
+
+def p8_check_children(seen: dict, tag: str, workers: int = 0) -> str:
+    """Every child is the port's: the supervisor runs the port's
+    standalone module, each broker the port's relay and each fleet
+    worker the port's worker, by path."""
+    port = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "librdkafka_tpu_torch")
+    want = {"sup": ["-m", "librdkafka_tpu_torch.mock.standalone"],
+            "relay": [os.path.join(port, "mock", "_relay.py")],
+            "worker": [os.path.join(port, "fleet", "_worker.py")]}
+    n = {"sup": 0, "relay": 0, "worker": 0}
+    for pid, (what, argv) in seen.items():
+        kind = ("sup" if what == "standalone-supervisor" else
+                "relay" if what.startswith("standalone-broker-") else
+                "worker" if what.startswith("fleet-worker-") else None)
+        check(kind is not None, f"{tag}: child {pid} is a {what!r}")
+        check(argv[1:1 + len(want[kind])] == want[kind],
+              f"{tag}: child {pid} ({what}) runs {argv}, not the port")
+        n[kind] += 1
+    check(n["sup"] >= 1 and n["relay"] >= 1,
+          f"{tag}: no supervisor or broker child recorded: {n}")
+    check(n["worker"] == workers,
+          f"{tag}: {n['worker']} fleet workers, not {workers}")
+    return (f"{n['sup']} supervisor(s), {n['relay']} broker relays"
+            + (f", {n['worker']} workers" if workers else "")
+            + ", every one the port's")
+
+
+def p8_no_leak(tag: str) -> None:
+    from librdkafka_tpu_torch.mock import external
+    left = external.active_subprocess_pids()
+    check(not left, f"{tag}: leaked subprocess(es) {left}")
+
+
+def phase_robustness(device: str | None = None) -> dict:
+    """Phase 8: the robustness tier through the port's entry points
+    (analysis/stress.py, chaos/ and fleet/ at the JAX package's sizes),
+    its device legs on ``device`` (the card unless "cpu").  (a)
+    run_stress(): the eight legs under lockdep, clean, with the CRC
+    kernel's launches in the engine leg and the LZ4 kernel's in the
+    device-codec leg; (b) hot_topic_flood(seed=17): isolation holds and
+    the compress route launched; (c) fast_external_kill9(seed=23) and (d)
+    fleet_smoke(seed=51), every child process the port's.  Returns the
+    kernels' launches of (a) and (b)."""
+    from librdkafka_tpu_torch.analysis import lockdep, stress
+    from librdkafka_tpu_torch.chaos.scenarios import (fast_external_kill9,
+                                                      hot_topic_flood)
+    from librdkafka_tpu_torch.fleet.scenarios import fleet_smoke
+    t_phase = time.perf_counter()
+    secs: dict = {}
+
+    # 8a: the stress gate, each leg's time and launches recorded
+    legs: dict = {}
+
+    def timed(name, fn):
+        def leg(*args):
+            c0, l0, t0 = crc.launches, lz4.launches, time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                legs[name] = {"s": time.perf_counter() - t0,
+                              "crc_rows": crc.launches - c0,
+                              "lz4_rows": lz4.launches - l0}
+        return leg
+
+    orig = {n: getattr(stress, n) for n in P8_LEGS}
+    for n, fn in orig.items():
+        setattr(stress, n, timed(n, fn))
+    seen, restore = p8_children()
+    try:
+        t0 = time.perf_counter()
+        crc.launches = lz4.launches = 0
+        rep = stress.run_stress(device)
+        a_counts = {"crc_rows": crc.launches, "lz4_rows": lz4.launches}
+        secs["8a"] = time.perf_counter() - t0
+    finally:
+        restore()
+        for n, fn in orig.items():
+            setattr(stress, n, fn)
+    check(lockdep.clean(rep), "8a: lockdep report not clean:\n"
+          + lockdep.format_report(rep))
+    check(set(legs) == set(P8_LEGS), f"8a: legs run {sorted(legs)}")
+    check(legs["_engine_pipeline_leg"]["crc_rows"] > 0,
+          "8a: the engine leg made no crc_rows launch")
+    check(legs["_devcodec_leg"]["lz4_rows"] > 0,
+          "8a: the device-codec leg made no lz4_rows launch")
+    p8_no_leak("8a")
+    print(f"phase 8a: run_stress(device={device!r}) lockdep clean "
+          f"({rep['acquisitions']} acquisitions, {rep['edges']} order "
+          f"edges) in {secs['8a']:.3f} s; launches crc_rows "
+          f"{a_counts['crc_rows']}, lz4_rows {a_counts['lz4_rows']}; "
+          f"children: {p8_check_children(seen, '8a', workers=4)}")
+    for n in P8_LEGS:
+        leg = legs[n]
+        print(f"  {n.strip('_')}: {leg['s']:.3f} s, crc_rows "
+              f"{leg['crc_rows']}, lz4_rows {leg['lz4_rows']}")
+
+    # 8b: the QoS flood at the JAX package's sizes, in this process as it
+    # stands.  The collector's pauses during the flood are recorded (not
+    # prevented), so a missed bound shows whether one of them covers it
+    gc_ms: list = []
+    gc_t0 = [0.0]
+
+    def gc_probe(phase, _info):
+        if phase == "start":
+            gc_t0[0] = time.perf_counter()
+        else:
+            gc_ms.append((time.perf_counter() - gc_t0[0]) * 1e3)
+
+    gc.callbacks.append(gc_probe)
+    try:
+        t0 = time.perf_counter()
+        crc.launches = lz4.launches = 0
+        flood = hot_topic_flood(seed=17, device=device,
+                                raise_on_violation=False)
+        b_counts = {"crc_rows": crc.launches, "lz4_rows": lz4.launches}
+        secs["8b"] = time.perf_counter() - t0
+    finally:
+        gc.callbacks.remove(gc_probe)
+    comp = flood["compress"]
+    gc_line = (f"{len(gc_ms)} collector pauses, longest "
+               f"{max(gc_ms, default=0.0):.1f} ms")
+    check(flood["ok"], f"8b: isolation did not hold ({gc_line}): {flood}")
+    check(flood["bulk_sent"] > 0
+          and flood["bulk_acked"] == flood["bulk_sent"],
+          f"8b: bulk messages left undelivered: {flood}")
+    check(comp["launches"] > 0 and b_counts["lz4_rows"] > 0,
+          f"8b: no compress launch: {comp}")
+    cpu_routes = {k: comp[k] for k in ("warmup_miss_jobs", "shed_jobs",
+                                       "routed_cpu_jobs", "cpu_jobs")}
+    launched = comp["jobs"] - sum(cpu_routes.values())
+    print(f"phase 8b: hot_topic_flood(seed=17) in {secs['8b']:.3f} s: "
+          f"p99 unloaded {flood['p99_unloaded_ms']} ms, flooded "
+          f"{flood['p99_flood_ms']} ms (bound {flood['bound_ms']} ms); "
+          f"latency acked {flood['latency_acked']}/{flood['latency_sent']},"
+          f" bulk acked {flood['bulk_acked']}/{flood['bulk_sent']}; "
+          f"{gc_line}")
+    print(f"  compress jobs {comp['jobs']}: launched {launched} in "
+          f"{comp['launches']} launches ({comp['blocks']} blocks), "
+          + ", ".join(f"{k} {v}" for k, v in cpu_routes.items())
+          + f"; kernel launches crc_rows {b_counts['crc_rows']}, "
+          f"lz4_rows {b_counts['lz4_rows']}")
+
+    # 8c: the fast out-of-process storm, children the port's
+    seen, restore = p8_children()
+    try:
+        t0 = time.perf_counter()
+        ext = fast_external_kill9(seed=23)
+        secs["8c"] = time.perf_counter() - t0
+    finally:
+        restore()
+    kills = ext["pids_killed"]
+    check(ext["ok"] and kills and all(e["verified_dead"] for e in kills),
+          f"8c: {ext.get('violations')} kills {kills}")
+    p8_no_leak("8c")
+    print(f"phase 8c: fast_external_kill9(seed=23) in {secs['8c']:.3f} s: "
+          f"acked {ext['acked']} == consumed {ext['consumed']}, "
+          f"{len(kills)} pid-verified SIGKILL(s); "
+          f"{p8_check_children(seen, '8c')}")
+
+    # 8d: the fleet smoke, four worker processes
+    seen, restore = p8_children()
+    try:
+        t0 = time.perf_counter()
+        fl = fleet_smoke(seed=51)
+        secs["8d"] = time.perf_counter() - t0
+    finally:
+        restore()
+    kills = fl["pids_killed"]
+    check(fl["ok"] and fl["workers"] == 4 and len(kills) == 1
+          and kills[0]["verified_dead"], f"8d: {fl}")
+    p8_no_leak("8d")
+    fm = fl["fleet_metrics"]
+    print(f"phase 8d: fleet_smoke(seed=51) in {secs['8d']:.3f} s: "
+          f"{fl['workers']} workers, acked {fm['acked_total']}, consumed "
+          f"{fl['consumed_by_group']}, 1 pid-verified SIGKILL, merged "
+          f"oracles ok; {p8_check_children(seen, '8d', workers=4)}")
+    print(f"phase 8: ok ({time.perf_counter() - t_phase:.3f} s: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items()) + ")")
+    return {k: a_counts[k] + b_counts[k] for k in ("crc_rows", "lz4_rows")}
+
 
 def kernel_line(main: dict, timing: dict, max_err: int) -> dict:
     """The crc_rows entry at the main path's shape (its produce regions
@@ -2047,10 +2280,12 @@ def main() -> None:
     comp = phase_lz4(cpu_p, work, rng)
     client = phase_client()
     mp = phase_mesh(comp, client)
+    robust = phase_robustness()
     cnt = mp["counts"]
     main_path["launches"] += (engine["launches"] + client["crc_rows"]
-                              + cnt["crc_rows"])
-    comp["launches"] += client["lz4_rows"] + cnt["lz4_rows"]
+                              + cnt["crc_rows"] + robust["crc_rows"])
+    comp["launches"] += (client["lz4_rows"] + cnt["lz4_rows"]
+                         + robust["lz4_rows"])
     line = kernel_line(main_path, timing, max(max_err, engine["max_err"]))
     lz4_line = {"name": "lz4_rows", "route": "cuda",
                 "source": "librdkafka_tpu_torch/csrc/lz4_rows.cu",

@@ -21,12 +21,19 @@ its batched CRC offload and its device lz4 compression, selected by
                  the broker's writer phase and fetch verify on their own
                  (``submit_batches`` / ``submit_read``, ``write_batches`` /
                  ``read_batches``)
-- ``mock``     — the in-process mock cluster and the sockem shim
-- ``analysis``, ``obs`` — lockdep / lockset checkers, tracing, metrics and
-                 trace collection
+- ``mock``     — the in-process mock cluster, the sockem shim, the
+                 standalone supervised cluster and its client-side
+                 handle (``mock.external.ClusterHandle``)
+- ``chaos``, ``fleet`` — fault schedules, the delivery oracle and the
+                 storm library; multi-process client fleets
+- ``analysis``, ``obs`` — lockdep / lockset checkers, the project lint and
+                 the stress gate, tracing, metrics and trace collection
 
 Entry points run on the card unless the caller asks for the CPU
-(``device="cpu"``, or the conf key ``gpu.device=cpu``).
+(``device="cpu"``, or the conf key ``gpu.device=cpu``).  Importing the
+package, and running a client on the CPU provider, loads no torch: the
+GPU provider is exported lazily, so broker and fleet processes start
+without it.
 """
 
 __version__ = "0.1.0"
@@ -44,4 +51,12 @@ from .client.event import Event  # noqa: F401
 from .client.codec_phase import (read_batches, submit_batches,  # noqa: F401
                                  submit_read, write_batches)
 from .ops.cpu import CpuCodecProvider  # noqa: F401
-from .ops.gpu import GpuCodecProvider  # noqa: F401
+
+
+def __getattr__(name: str):
+    """``GpuCodecProvider`` on first use: ops/gpu.py imports torch."""
+    if name == "GpuCodecProvider":
+        from .ops.gpu import GpuCodecProvider
+        globals()[name] = GpuCodecProvider
+        return GpuCodecProvider
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

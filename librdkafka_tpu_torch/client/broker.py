@@ -32,6 +32,7 @@ from typing import Callable, Optional, TYPE_CHECKING
 from ..obs import trace as _trace
 from ..analysis import lockdep as _lockdep
 from ..analysis.races import shared
+from ..ops.cpu import SyncTicket
 from ..ops.packing import FrameBlob
 from ..protocol import apis, proto
 from ..protocol.apis import APIS
@@ -2272,7 +2273,6 @@ class Broker:
         pre-resolved ticket computed synchronously right here — an
         exception is carried in the ticket and re-raises at resolve
         time, exactly where the synchronous path raised it."""
-        from ..ops.engine import SyncTicket
         submit = getattr(provider, submit_name, None)
         if submit is not None:
             try:
@@ -2288,7 +2288,6 @@ class Broker:
 
     @staticmethod
     def _decompress_submit(provider, codec: str, bufs: list):
-        from ..ops.engine import SyncTicket
         sub = getattr(provider, "decompress_submit", None)
         if sub is not None:
             try:

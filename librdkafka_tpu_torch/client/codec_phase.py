@@ -26,7 +26,7 @@ resolved at once.
 """
 from __future__ import annotations
 
-from ..ops.engine import SyncTicket
+from ..ops.cpu import SyncTicket
 from ..ops.packing import FrameBlob
 from ..protocol import proto
 from ..protocol.msgset import (CrcMismatch, MsgsetWriterV2, Record,

@@ -482,6 +482,27 @@ def _ext():
     return _EXT
 
 
+class SyncTicket:
+    """Pre-resolved ticket: the CPU provider's (and any synchronous
+    fallback's) ticket-shaped result, so pipelined and synchronous codec
+    paths flow through ONE submit/park/resolve code path.  It lives here,
+    not in ops/engine.py, so a CPU client never imports torch."""
+
+    __slots__ = ("_result", "_exc")
+
+    def __init__(self, result=None, exc: BaseException | None = None):
+        self._result = result
+        self._exc = exc
+
+    def done(self) -> bool:
+        return True
+
+    def result(self, timeout: float | None = None):
+        if self._exc is not None:
+            raise self._exc
+        return self._result
+
+
 class CpuCodecProvider:
     """The msgset codec provider interface (SURVEY.md §7 stage 5).
 
@@ -557,18 +578,15 @@ class CpuCodecProvider:
     # ONE submit/park/resolve code path for both providers.
 
     def crc32c_submit(self, bufs: list[bytes]):
-        from .engine import SyncTicket
         return SyncTicket(np.asarray(self.crc32c_many(bufs),
                                      dtype=np.uint32))
 
     def crc32_submit(self, bufs: list[bytes]):
-        from .engine import SyncTicket
         return SyncTicket(np.asarray(self.crc32_many(bufs),
                                      dtype=np.uint32))
 
     def decompress_submit(self, codec: str, bufs: list[bytes],
                           size_hints: list[int] | None = None):
-        from .engine import SyncTicket
         return SyncTicket(self.decompress_many(codec, bufs, size_hints))
 
     def fused_codec_id(self, codec: str) -> int | None:

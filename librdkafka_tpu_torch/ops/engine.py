@@ -121,26 +121,6 @@ class Ticket:
             self._ev.set()
 
 
-class SyncTicket:
-    """Pre-resolved ticket: the CPU provider's (and any synchronous
-    fallback's) ticket-shaped result, so pipelined and synchronous codec
-    paths flow through ONE submit/park/resolve code path."""
-
-    __slots__ = ("_result", "_exc")
-
-    def __init__(self, result=None, exc: Optional[BaseException] = None):
-        self._result = result
-        self._exc = exc
-
-    def done(self) -> bool:
-        return True
-
-    def result(self, timeout: Optional[float] = None):
-        if self._exc is not None:
-            raise self._exc
-        return self._result
-
-
 class _Job:
     __slots__ = ("kind", "data", "lens", "poly", "ticket", "window", "fn",
                  "args", "t_submit", "topics", "weight")
@@ -183,8 +163,11 @@ class _Staging:
         self.copies = max(2, copies)
         self.pin = pin
         self._lock = new_lock("engine.staging")
-        self._rings: dict[int, list] = {}
-        self._next: dict[int, int] = {}
+        #: the rings and their cursors, by bucket: taken on the dispatch
+        #: thread, preallocated by the warmup, cleared at close, every
+        #: access under engine.staging
+        self._rings: dict[int, list] = shared_dict("engine.staging.rings")
+        self._next: dict[int, int] = shared_dict("engine.staging.next")
 
     def take(self, nbytes: int) -> "_crc.Slot":
         key = _crc.slot_bucket(nbytes)

@@ -131,7 +131,7 @@ class GpuCodecProvider:
         self.device = crc32c_torch.resolve_device(device)
         self.min_transport_mb_s = float(min_transport_mb_s)
         self.transport_mb_s: float | None = None      # measured by probe
-        self._probe_lock = threading.Lock()
+        self._probe_lock = new_lock("gpu.probe")
         self.pipeline_depth = int(pipeline_depth)
         self.fanin_us = int(fanin_us)
         self.governor = bool(governor)

@@ -618,7 +618,8 @@ def test_e2e_device_route_roundtrip_and_stats():
 
 def test_hot_topic_flood_qos_isolation():
     """test_0135 :448 with gpu.* keys (the JAX package's
-    chaos.scenarios.hot_topic_flood; its module is not ported yet): a
+    chaos.scenarios.hot_topic_flood, ported as the port's
+    chaos.scenarios.hot_topic_flood, which runs it at full size): a
     weight-8 latency topic beside a zipf-sized weight-0.25 bulk flood
     through the device compress route with the governor and warmup on.
     Every latency message acks, the latency topic is routed to the

@@ -15,7 +15,8 @@ from librdkafka_tpu_torch import (CpuCodecProvider, GpuCodecProvider,
 from librdkafka_tpu_torch.obs import metrics as port_metrics
 from librdkafka_tpu_torch.obs import trace as port_trace
 from librdkafka_tpu_torch.ops import crc32c_torch
-from librdkafka_tpu_torch.ops.engine import SyncTicket, Ticket
+from librdkafka_tpu_torch.ops.cpu import SyncTicket
+from librdkafka_tpu_torch.ops.engine import Ticket
 from librdkafka_tpu_torch.ops.packing import FrameBlob
 from librdkafka_tpu_torch.protocol import msgset as pms
 from librdkafka_tpu_torch.utils.crc import crc32c

@@ -24,7 +24,8 @@ from librdkafka_tpu_torch.obs import metrics as port_metrics
 from librdkafka_tpu_torch.obs import trace as port_trace
 from librdkafka_tpu_torch.ops import cpu as native
 from librdkafka_tpu_torch.ops import crc32c_torch
-from librdkafka_tpu_torch.ops.engine import AsyncOffloadEngine, SyncTicket
+from librdkafka_tpu_torch.ops.cpu import SyncTicket
+from librdkafka_tpu_torch.ops.engine import AsyncOffloadEngine
 
 
 @pytest.fixture(autouse=True)

@@ -8,11 +8,12 @@ flight, first launches from two threads), and the LZ4 kernel
 (csrc/lz4_rows.cu) against its plain version and the native encoder in
 every ``with_crc`` mode (with the edge rows of its stages), its two CTAs
 an SM and its stage clocks, beside a CRC launch on another stream, and
-through the engine's compress route, and the sharded steps (kernels G
+through the engine's compress route, the sharded steps (kernels G
 and H of parallel/mesh.py) on four shards of the visible cards, through
-the engine and the entry points.  Marked ``gpu``; each skips on a
-host without CUDA.  On a card (tests/conftest.py imports jax, which the
-GPU host lacks):
+the engine and the entry points, and the robustness tier (the QoS flood
+scenario and the stress gate) with its device legs on the card.  Marked
+``gpu``; each skips on a host without CUDA.  On a card
+(tests/conftest.py imports jax, which the GPU host lacks):
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
@@ -511,93 +512,35 @@ def test_gpu_backend_raises_without_cuda(monkeypatch):
 
 
 def test_hot_topic_flood_qos_isolation_on_card(card):
-    """test_0135 :448 at the reference's sizes, on the card (the JAX
-    package's chaos.scenarios.hot_topic_flood with gpu.* keys): a
-    weight-8 latency topic beside a zipf-sized weight-0.25 bulk flood
-    (2,000 B zipf, capped at 120,000 B) through the device compress
-    route, governor and warmup on.  Every latency message acks, its
-    flooded p99 stays within 3x the unloaded p99 (floor 100 ms), and the
-    bulk topic makes progress."""
-    import json
-    import random
-    import threading
-    import time
+    """test_0135 :448 at the reference's sizes, on the card, through the
+    port's chaos.scenarios.hot_topic_flood (gpu.* keys): a weight-8
+    latency topic beside a zipf-sized weight-0.25 bulk flood (2,000 B
+    zipf, capped at 120,000 B) through the device compress route,
+    governor and warmup on.  Every latency message acks, its flooded p99
+    stays within 3x the unloaded p99 (floor 100 ms), every bulk message
+    is delivered by the scenario's flush, and the latency topic's weight
+    reaches the stats."""
+    from librdkafka_tpu_torch.chaos.scenarios import hot_topic_flood
+    r = hot_topic_flood(seed=17)
+    assert r["ok"], r       # every ping acked, p99 in bound, bulk moved
+    assert r["bulk_sent"] > 0 and r["bulk_acked"] == r["bulk_sent"], r
+    assert r["compress"]["launches"] > 0, r["compress"]
+    assert r["qos"]["qos-latency"]["weight"] == 8.0, r["qos"]
 
-    from librdkafka_tpu_torch import Producer
-    rng = random.Random(17)
-    p = Producer({"bootstrap.servers": "", "test.mock.num.brokers": 1,
-                  "compression.backend": "gpu", "gpu.transport.min.mb.s": 0,
-                  "gpu.compress.device": True, "gpu.launch.min.batches": 1,
-                  "gpu.governor": True, "gpu.warmup": True,
-                  "compression.codec": "lz4", "linger.ms": 2,
-                  "batch.num.messages": 32})
-    lock = threading.Lock()
-    lat_un, lat_fl, bulk_acked = [], [], [0]
 
-    def pct99(xs):
-        xs = sorted(xs)
-        return xs[min(len(xs) - 1, int(0.99 * len(xs)))] if xs else None
-
-    try:
-        p._rk.set_topic_conf("qos-latency", {"topic.qos.weight": 8.0})
-        p._rk.set_topic_conf("qos-bulk", {"topic.qos.weight": 0.25})
-
-        def ping(sink):
-            ts = time.perf_counter()
-
-            def dr(err, _msg):
-                if err is None:
-                    with lock:
-                        sink.append((time.perf_counter() - ts) * 1e3)
-            p.produce("qos-latency", value=b"lat-ping " * 40,
-                      on_delivery=dr)
-
-        def bulk_dr(err, _msg):
-            if err is None:
-                with lock:
-                    bulk_acked[0] += 1
-
-        for _ in range(40):
-            ping(lat_un)
-            p.poll(0.01)
-        p.flush(60)
-        stop = threading.Event()
-
-        def flood():
-            while not stop.is_set():
-                n = min(int(2000 * (1.0 / (1.0 - rng.random()) ** 1.2)),
-                        120_000)
-                try:
-                    p.produce("qos-bulk", value=b"\xa5" * max(n, 100),
-                              on_delivery=bulk_dr)
-                except BufferError:
-                    time.sleep(0.002)
-                time.sleep(0.0005)
-
-        flooder = threading.Thread(target=flood, name="qos-flooder",
-                                   daemon=True)
-        flooder.start()
-        t_end = time.monotonic() + 1.5
-        while time.monotonic() < t_end:
-            ping(lat_fl)
-            p.poll(0.02)
-        stop.set()
-        flooder.join(10)
-        assert not flooder.is_alive()
-        assert p.flush(120) == 0
-        comp = json.loads(p._rk.stats.emit_json())["codec_engine"][
-            "compress"]
-    finally:
-        p.close()
-    with lock:
-        p99_un, p99_fl = pct99(lat_un), pct99(lat_fl)
-        acked = len(lat_un) + len(lat_fl)
-    assert acked == 40 + len(lat_fl) and len(lat_un) == 40
-    assert p99_fl is not None and p99_fl <= max(3.0 * p99_un, 100.0), (
-        p99_un, p99_fl)
-    assert bulk_acked[0] > 0
-    assert comp["launches"] > 0, comp
-    assert comp["qos"]["qos-latency"]["weight"] == 8.0, comp
+def test_robustness_tier_on_card(card):
+    """The ported stress gate with its device legs on their default
+    device, the card: analysis.stress.run_stress() is lockdep-clean with
+    CRC launches (the engine leg) and LZ4 launches (the device-codec
+    leg), no subprocess left behind.  The flood runs in the test above."""
+    from librdkafka_tpu_torch.analysis import lockdep, stress
+    from librdkafka_tpu_torch.mock import external
+    from librdkafka_tpu_torch.ops import lz4_torch
+    c0, l0 = crc.launches, lz4_torch.launches
+    rep = stress.run_stress()
+    assert lockdep.clean(rep), lockdep.format_report(rep)
+    assert crc.launches > c0 and lz4_torch.launches > l0
+    assert not external.active_subprocess_pids()
 
 
 # ------------------------------------------------ kernels G and H (mesh) --

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of librdkafka_tpu_torch, and not
-chip_smoke.py, imports jax, jaxlib or the JAX package (librdkafka_tpu)."""
+"""The port stands alone: no module of librdkafka_tpu_torch, and neither
+chip_smoke.py nor flood_tail.py, imports jax, jaxlib or the JAX package
+(librdkafka_tpu)."""
 import ast
 import pathlib
 
@@ -7,7 +8,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "librdkafka_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "flood_tail.py"]
 BANNED = ("jax", "jaxlib", "librdkafka_tpu")
 
 

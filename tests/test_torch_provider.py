@@ -15,7 +15,8 @@ from librdkafka_tpu_torch.obs import metrics as port_metrics
 from librdkafka_tpu_torch.obs import trace as port_trace
 from librdkafka_tpu_torch.ops import cpu as native
 from librdkafka_tpu_torch.ops import crc32c_torch, gpu
-from librdkafka_tpu_torch.ops.engine import SyncTicket, Ticket
+from librdkafka_tpu_torch.ops.cpu import SyncTicket
+from librdkafka_tpu_torch.ops.engine import Ticket
 
 BUFS = [b"semi" * 300, bytes(range(256)) * 4, b"", b"q",
         b"n" * 65535, b"o" * 70_000]
