@@ -109,7 +109,28 @@ the collector's pauses during the flood printed); (c)
 delivery verified, pid-verified SIGKILLs, and every child process (the
 supervisor, each broker relay, each fleet worker) the port's by its
 /proc command line, none left behind.  (a)'s and (b)'s launches add to
-the kernels line.  Any mismatch exits non-zero.
+the kernels line.  Phase 9 drives the C ABI (librdkafka_tpu_torch/capi):
+(a) gcc builds libtkafka.so from the checkout, then capi/gpu_smoke.c,
+the port's examples/cpp_client.cpp and the reference's unchanged
+tests/capi_smoke.c against it; (b) gpu_smoke, a C program, runs phase 6's
+Producer -> mock -> Consumer(check.crcs) path through the library at 64 x
+1,600 x 1 KB a repeat, three repeats on each of two legs ((a) CRC
+tickets, (b) gpu.compress.device=true; gpu.governor=false,
+gpu.launch.min.batches=1, warm first): tk_create_topic, tk_produce_batch
+and tk_flush, a tail through tk_produce2 (raw-byte headers, DRs) and
+tk_flush, then tk_assign and every record checked in order in C.  The
+clients' codec_engine stats before and after each leg give the launches
+(crc_rows on leg a, lz4_rows on leg b, both clients' CRC verify), which
+add to the kernels line, and must show no job on a CPU route; its msgs/s
+print beside phase 6b's and 6c's; (c) capi_smoke and cpp_client pass
+against the port's library, capi_smoke's embedded sys.executable
+running -c as Python (the GPU provider's transport probe re-runs it);
+(d) the performance example (-P --backend cpu, -P --backend gpu, -C
+--backend gpu, one process calling its main() thrice, set up beside
+(c) and started after it) against the standalone mock, its msgs/s printed; each GPU run, under the provider's
+default governor, must launch on the card, and the jobs it served on
+the CPU print beside its launches.  Phase 9 fails past 60 s.  Any
+mismatch exits non-zero.
 
 The last two lines of standard output are a ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -121,10 +142,13 @@ import gc
 import json
 import math
 import os
+import re
 import select
+import shutil
 import statistics
 import subprocess
 import sys
+import sysconfig
 import threading
 import time
 import zlib
@@ -310,6 +334,10 @@ def phase_device() -> dict:
     print(f"device: {name} (torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} card)")
     print(smi)
+    cv = sysconfig.get_config_var
+    print(f"python {sys.executable}: Py_ENABLE_SHARED="
+          f"{cv('Py_ENABLE_SHARED')} LDLIBRARY={cv('LDLIBRARY')} "
+          f"LIBDIR={cv('LIBDIR')} (libtkafka.so, phase 9, links it)")
     # one nvcc per source, all started together
     t0 = time.perf_counter()
     ths = [threading.Thread(target=f) for f in (crc._kernel_lib,
@@ -2252,6 +2280,297 @@ def phase_robustness(device: str | None = None) -> dict:
     return {k: a_counts[k] + b_counts[k] for k in ("crc_rows", "lz4_rows")}
 
 
+# ---------------------------------------------------------------- phase 9 --
+
+P9_PER_PART, P9_TAIL, P9_REPEATS = 1600, 16, 3
+P9_LIMIT_S = 60
+#: gpu_smoke's legs: (a) CRC tickets, (b) the device compress route
+P9_LEGS = {"a": "a", "b": "b:gpu.compress.device=true"}
+
+
+def p9_build() -> dict:
+    """9a: gcc libtkafka.so from the checkout, then the three C programs
+    against it (one gcc each, started together)."""
+    from librdkafka_tpu_torch.capi import build_capi, smoke
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    build_capi.build(force=True)
+    t_lib = time.perf_counter() - t0
+    srcs = {"gpu_smoke": smoke.SRC,
+            "cpp_client": os.path.join(root, "librdkafka_tpu_torch",
+                                       "examples", "cpp_client.cpp"),
+            "capi_smoke": os.path.join(root, "tests", "capi_smoke.c")}
+    exes: dict = {}
+    errs: list = []
+
+    def one(name):
+        try:
+            exes[name] = build_capi.compile_program(
+                srcs[name], os.path.join(build_capi.BUILD_DIR, name))
+        except RuntimeError as e:
+            errs.append(e)
+
+    t1 = time.perf_counter()
+    ths = [threading.Thread(target=one, args=(n,)) for n in srcs]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join()
+    check(not errs, f"9a: a C program did not build: {errs}")
+    print(f"phase 9a: libtkafka.so (gcc) {t_lib:.3f} s; gpu_smoke.c, "
+          f"examples/cpp_client.cpp and tests/capi_smoke.c (gcc, in "
+          f"parallel) {time.perf_counter() - t1:.3f} s")
+    return exes
+
+
+def p9_main_path(exe: str, p6: dict) -> dict:
+    """9b: gpu_smoke on the card, legs a (CRC tickets) and b (device
+    compress) at 64 x 1,600 x 1 KB a repeat, three repeats a leg.
+    Returns the kernels' launches from the clients' stats deltas."""
+    from librdkafka_tpu_torch.capi import smoke
+    args = [exe, "--partitions", str(P6_PARTS), "--records",
+            str(P9_PER_PART), "--tail", str(P9_TAIL), "--repeats",
+            str(P9_REPEATS),
+            "--conf", "compression.backend=gpu"]
+    for k, v in P6_GPU.items():
+        args += ["--conf", f"{k}={str(v).lower()}"]
+    for leg in P9_LEGS.values():
+        args += ["--leg", leg]
+    t0 = time.perf_counter()
+    r = subprocess.run(args, capture_output=True, text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    if r.returncode != 0 or not r.stdout.rstrip().endswith("GPU-SMOKE-OK"):
+        print(r.stdout[-4000:])
+        print(r.stderr[-8000:], file=sys.stderr)
+        fail(f"9b: gpu_smoke exited {r.returncode}")
+    legs = smoke.read(r.stdout)
+    counts = {"crc_rows": 0, "lz4_rows": 0}
+    p6legs = {"a": ("6b", p6["legs"][1]), "b": ("6c", p6["legs"][2])}
+    n = P6_PARTS * P9_PER_PART
+    print(f"phase 9b: gpu_smoke (C, through libtkafka.so): Producer -> "
+          f"mock -> Consumer(check.crcs), {P9_REPEATS} x {n} records x "
+          f"{VALUE_SIZE} B over {P6_PARTS} idempotent partitions a leg "
+          f"(tk_produce_batch, then a tail of {P9_TAIL} a partition "
+          f"through tk_produce2 with headers and DRs), every record read "
+          f"back in order; {dt:.3f} s")
+    for name, rep in legs.items():
+        prod = smoke.deltas(rep, "producer")
+        cons = smoke.deltas(rep, "consumer")
+        bad = {f"{who}.{k}": d[k] for who, d in (("producer", prod),
+                                                 ("consumer", cons))
+               for k in smoke.CPU_ROUTES if d[k]}
+        check(not bad, f"9b leg {name}: jobs on the CPU route: {bad}")
+        check(cons["launches"] > 0, f"9b leg {name}: no consumer launch")
+        if name == "a":
+            check(prod["launches"] > 0 and prod["compress.launches"] == 0,
+                  f"9b leg a: producer launches {prod}")
+        else:
+            check(prod["compress.launches"] > 0 and prod["launches"] == 0,
+                  f"9b leg b: producer launches {prod}")
+        counts["crc_rows"] += prod["launches"] + cons["launches"]
+        counts["lz4_rows"] += prod["compress.launches"]
+        summ = rep["summary"]
+        tag, p6leg = p6legs[name]
+        route = "CRC tickets" if name == "a" else "gpu.compress.device"
+        print(f"  leg {name} ({route}): warm after "
+              f"{summ['warm_rounds']} round(s) ({summ['warm_s']:.3f} s), "
+              f"leg {summ['leg_s']:.3f} s; "
+              f"launches: producer crc_rows {prod['launches']}, lz4_rows "
+              f"{prod['compress.launches']}; consumer crc_rows "
+              f"{cons['launches']}; CPU routes 0")
+        print(f"    from C: produce {p6_rates(summ['produce'])}; consume "
+              f"{p6_rates(summ['consume'])}")
+        print(f"    phase {tag} (Python, this call): produce "
+              f"{p6_rates(p6leg['produce'])}; consume "
+              f"{p6_rates(p6leg['consume'])}")
+    check(set(legs) == set(P9_LEGS), f"9b: legs {sorted(legs)}")
+    return counts
+
+
+#: a sitecustomize for 9c's capi_smoke: the embedded interpreter's
+#: sys.executable, and what it prints for -c, into $TK_EXE_REPORT
+P9_SITE = """import json, os, subprocess, sys
+out = os.environ.pop("TK_EXE_REPORT", None)
+if out:
+    r = subprocess.run([sys.executable, "-c", "print(6 * 7)"],
+                       capture_output=True, text=True, timeout=60)
+    with open(out, "w") as f:
+        json.dump([sys.executable, r.returncode, r.stdout], f)
+"""
+
+
+def p9_abi(exes: dict) -> None:
+    """9c: the reference's unchanged tests/capi_smoke.c and the port's
+    cpp_client, linked against the port's library, both at once.
+    capi_smoke runs with a sitecustomize first on PYTHONPATH that runs
+    the embedded interpreter's sys.executable with -c (the GPU
+    provider's transport probe, the standalone mock and fleet workers
+    re-run it): it must be Python."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    stub = os.path.join(root, "build", "p9-site")
+    report = os.path.join(stub, "exe.json")
+    os.makedirs(stub, exist_ok=True)
+    with open(os.path.join(stub, "sitecustomize.py"), "w") as f:
+        f.write(P9_SITE)
+    t0 = time.perf_counter()
+    envs = {"capi_smoke": dict(os.environ, PYTHONPATH=stub,
+                               TK_EXE_REPORT=report),
+            "cpp_client": None}
+    procs = {n: subprocess.Popen([exes[n]], stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True,
+                                 env=env)
+             for n, env in envs.items()}
+    outs = {}
+    try:
+        for n, proc in procs.items():
+            try:
+                out, err = proc.communicate(timeout=180)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(30)
+            check(proc.returncode == 0, f"9c: {n} exited "
+                  f"{proc.returncode}: {err[-2000:]}")
+            outs[n] = out
+        with open(report) as f:
+            exe, rc, printed = json.load(f)
+    finally:
+        shutil.rmtree(stub, ignore_errors=True)
+    check("CAPI-OK" in outs["capi_smoke"] and "all pass"
+          in outs["capi_smoke"], "9c: capi_smoke did not pass")
+    check("CPP-OK" in outs["cpp_client"], "9c: cpp_client did not pass")
+    check(rc == 0 and printed.strip() == "42" and
+          os.path.basename(exe) != "capi_smoke",
+          f"9c: the embedded sys.executable {exe!r} is not a Python that "
+          f"runs -c (rc {rc}, printed {printed!r})")
+    print(f"phase 9c: tests/capi_smoke.c (unchanged) and "
+          f"examples/cpp_client.cpp against the port's libtkafka.so: "
+          f"CAPI-OK ... all pass, CPP-OK "
+          f"({time.perf_counter() - t0:.3f} s, both at once); the "
+          f"embedded sys.executable is {exe} and runs -c")
+
+
+#: 9d's runs of the performance example, in one process that calls its
+#: main() once a run: torch is imported and the card set up once, while
+#: 9c runs; the runs start when the mock's bootstrap comes on stdin
+P9_PERF = """import sys, time
+import torch
+from librdkafka_tpu_torch.examples import performance
+torch.cuda.init()
+print("9d-ready", flush=True)
+bootstrap = sys.stdin.readline().strip()
+for tag, argv in %r:
+    print("9d-run", tag, flush=True)
+    t0 = time.perf_counter()
+    performance.main(argv + ["-b", bootstrap])
+    print(f"9d-secs {time.perf_counter() - t0:.3f}", flush=True)
+"""
+P9_ENGINE = re.compile(
+    r"% codec engine: (\d+) CRC launches, (\d+) compress launches; CRC "
+    r"jobs (\d+), (\d+) of them on the CPU; compress jobs (\d+), (\d+) of "
+    r"them on the CPU")
+P9_DELIVERED = (r"% (\d+) msgs delivered \(0 failed, 0 stuck\) in "
+                r"[\d.]+s: ([\d,]+) msgs/s")
+#: (tag, the example's arguments, the line that gives its count and rate)
+P9_RUNS = (("-P cpu", ["-P", "-t", "perf-cpu", "--backend", "cpu"],
+            P9_DELIVERED),
+           ("-P gpu", ["-P", "-t", "perf-gpu", "--backend", "gpu"],
+            P9_DELIVERED),
+           ("-C gpu", ["-C", "-t", "perf-gpu", "--backend", "gpu"],
+            r"% consumed (\d+) msgs in [\d.]+s: ([\d,]+) msgs/s"))
+
+
+def p9_perf_start() -> tuple:
+    """9d's set-up, started before 9c: the standalone mock (64
+    partitions) and the example's process, which imports and sets up the
+    card, then waits for the bootstrap."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = ["-z", "lz4", "--partitions", str(P6_PARTS), "-c",
+            str(P6_PARTS * P9_PER_PART)]
+    mock = subprocess.Popen(
+        [sys.executable, "-m", "librdkafka_tpu_torch.mock.standalone",
+         "--partitions", str(P6_PARTS)], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    example = subprocess.Popen(
+        [sys.executable, "-c",
+         P9_PERF % ([(tag, extra + base) for tag, extra, _ in P9_RUNS],)],
+        cwd=root, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    return mock, example
+
+
+def p9_performance(mock, example, smi: str) -> dict:
+    """9d: the performance example against the standalone mock: -P
+    --backend cpu, -P --backend gpu, then -C --backend gpu reading the
+    GPU run's topic back.  The GPU runs keep the provider's default
+    governor (a user's view): each must launch on the card, and the jobs
+    it served on the CPU are printed beside its launches.  Returns each
+    run's reading."""
+    n = P6_PARTS * P9_PER_PART
+    t0 = time.perf_counter()
+    ready, _, _ = select.select([mock.stdout], [], [], 60)
+    bootstrap = mock.stdout.readline().strip() if ready else ""
+    check(bool(bootstrap), "9d: the standalone mock did not start")
+    ready, _, _ = select.select([example.stdout], [], [], 120)
+    line = example.stdout.readline() if ready else ""
+    check(line.strip() == "9d-ready", f"9d: the example's process did not "
+          f"start: {line!r}")
+    t_wait = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out, err = example.communicate(bootstrap + "\n", timeout=300)
+    secs = time.perf_counter() - t0
+    check(example.returncode == 0, f"9d: the example exited "
+          f"{example.returncode}: {out[-1000:]}{err[-2000:]}")
+    outs = dict(part.split("\n", 1) for part in out.split("9d-run ")[1:])
+    got = {}
+    for tag, _, pat in P9_RUNS:
+        run = outs.get(tag, "")
+        m = re.search(pat, run)
+        check(m is not None and int(m.group(1)) == n, f"9d {tag}: {run}")
+        eng = P9_ENGINE.search(run)
+        if tag.endswith("gpu"):
+            check(eng is not None and int(eng.group(1)) > 0,
+                  f"9d {tag}: no CRC launch on the card: {run}")
+        run_s = re.search(r"9d-secs ([\d.]+)", run)
+        got[tag] = (m.group(2), eng.group(0)[2:] if eng else "",
+                    run_s.group(1) if run_s else "?")
+    print(f"phase 9d: python -m librdkafka_tpu_torch.examples.performance "
+          f"-z lz4 --partitions {P6_PARTS} -c {n} -b <standalone mock>, "
+          f"three runs in one process ({secs:.3f} s, after {t_wait:.3f} s "
+          f"more of set-up beside 9c; {smi}); the GPU runs are the "
+          f"governed GPU backend:")
+    for tag, (rate, eng, run_s) in got.items():
+        print(f"  {tag}: {rate} msgs/s ({run_s} s with the client's "
+              f"set-up){'; ' + eng if eng else ''}")
+    cpu = float(got["-P cpu"][0].replace(",", ""))
+    gpu = float(got["-P gpu"][0].replace(",", ""))
+    print(f"  -P gpu / -P cpu: {gpu / cpu:.3f} (PERF.md's limit 0.95; "
+          f"not checked here)")
+    return got
+
+
+def phase_capi(p6: dict, smi: str) -> dict:
+    """Phase 9: the C ABI (librdkafka_tpu_torch/capi) on the card.
+    Returns the kernels' launches of 9b."""
+    t0 = time.perf_counter()
+    exes = p9_build()
+    counts = p9_main_path(exes["gpu_smoke"], p6)
+    mock, example = p9_perf_start()
+    try:
+        p9_abi(exes)
+        p9_performance(mock, example, smi)
+    finally:
+        for proc in (example, mock):
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(30)
+    secs = time.perf_counter() - t0
+    check(secs <= P9_LIMIT_S, f"phase 9 took {secs:.3f} s, over its "
+          f"{P9_LIMIT_S} s")
+    print(f"phase 9: ok ({secs:.3f} s)")
+    return counts
+
+
 def kernel_line(main: dict, timing: dict, max_err: int) -> dict:
     """The crc_rows entry at the main path's shape (its produce regions
     as packed segments)."""
@@ -2281,11 +2600,13 @@ def main() -> None:
     client = phase_client()
     mp = phase_mesh(comp, client)
     robust = phase_robustness()
+    capi = phase_capi(client, dev["smi"])
     cnt = mp["counts"]
     main_path["launches"] += (engine["launches"] + client["crc_rows"]
-                              + cnt["crc_rows"] + robust["crc_rows"])
+                              + cnt["crc_rows"] + robust["crc_rows"]
+                              + capi["crc_rows"])
     comp["launches"] += (client["lz4_rows"] + cnt["lz4_rows"]
-                         + robust["lz4_rows"])
+                         + robust["lz4_rows"] + capi["lz4_rows"])
     line = kernel_line(main_path, timing, max(max_err, engine["max_err"]))
     lz4_line = {"name": "lz4_rows", "route": "cuda",
                 "source": "librdkafka_tpu_torch/csrc/lz4_rows.cu",

@@ -28,6 +28,12 @@ its batched CRC offload and its device lz4 compression, selected by
                  storm library; multi-process client fleets
 - ``analysis``, ``obs`` — lockdep / lockset checkers, the project lint and
                  the stress gate, tracing, metrics and trace collection
+- ``capi``     — the C ABI (libtkafka.so + tkafka.h, built by gcc from a
+                 hand-written shim over an embedded CPython) and its C++
+                 wrapper ``tkafka.hpp``
+- ``examples`` — producer, consumer, admin, performance and the
+                 verifiable client, run as ``python -m
+                 librdkafka_tpu_torch.examples.<name>``
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``, or the conf key ``gpu.device=cpu``).  Importing the

@@ -10,8 +10,9 @@ every ``with_crc`` mode (with the edge rows of its stages), its two CTAs
 an SM and its stage clocks, beside a CRC launch on another stream, and
 through the engine's compress route, the sharded steps (kernels G
 and H of parallel/mesh.py) on four shards of the visible cards, through
-the engine and the entry points, and the robustness tier (the QoS flood
-scenario and the stress gate) with its device legs on the card.  Marked
+the engine and the entry points, the robustness tier (the QoS flood
+scenario and the stress gate) with its device legs on the card, and the
+C ABI (capi/gpu_smoke.c through libtkafka.so) on the card.  Marked
 ``gpu``; each skips on a host without CUDA.  On a card
 (tests/conftest.py imports jax, which the GPU host lacks):
 
@@ -657,3 +658,33 @@ def test_entry_points_on_card(card):
         dryrun_multichip(4, devices=_card_pool(card))
     finally:
         mesh.release_step_cache()
+
+
+def test_capi_round_trip_on_card(card, tmp_path):
+    """capi/gpu_smoke.c, a C program on the port's libtkafka.so, drives
+    both GPU legs on the card at 8 partitions x 200 x 1 KB: every record
+    read back in order, every DR delivered (the program checks both),
+    crc_rows launches from the producer on leg a, lz4_rows on leg b, the
+    consumer's CRC verify on both, and no job on a CPU route."""
+    import subprocess
+
+    from librdkafka_tpu_torch.capi import build_capi, smoke
+    exe = build_capi.compile_program(smoke.SRC, str(tmp_path / "gpu_smoke"))
+    r = subprocess.run(
+        [exe, "--partitions", "8", "--records", "200", "--tail", "8",
+         "--repeats", "1", "--conf", "compression.backend=gpu",
+         "--conf", "gpu.governor=false", "--conf", "gpu.launch.min.batches=1",
+         "--leg", "a", "--leg", "b:gpu.compress.device=true"],
+        capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, (r.stdout[-2000:], r.stderr[-4000:])
+    legs = smoke.read(r.stdout)
+    assert set(legs) == {"a", "b"}
+    for name, rep in legs.items():
+        prod = smoke.deltas(rep, "producer")
+        cons = smoke.deltas(rep, "consumer")
+        assert cons["launches"] > 0
+        assert not any(d[k] for d in (prod, cons) for k in smoke.CPU_ROUTES)
+        if name == "a":
+            assert prod["launches"] > 0 and prod["compress.launches"] == 0
+        else:
+            assert prod["compress.launches"] > 0 and prod["launches"] == 0

@@ -1,15 +1,21 @@
 """The port stands alone: no module of librdkafka_tpu_torch, and neither
-chip_smoke.py nor flood_tail.py, imports jax, jaxlib or the JAX package
-(librdkafka_tpu)."""
+chip_smoke.py nor flood_tail.py, imports jax, jaxlib, cffi or the JAX
+package (librdkafka_tpu); the C and C++ sources of its C ABI and examples
+do not name them."""
 import ast
 import pathlib
+import re
 
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "librdkafka_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "flood_tail.py"]
-BANNED = ("jax", "jaxlib", "librdkafka_tpu")
+BANNED = ("jax", "jaxlib", "librdkafka_tpu", "cffi")
+C_FILES = sorted(p for d in ("capi", "examples")
+                 for p in (ROOT / "librdkafka_tpu_torch" / d).glob("*")
+                 if p.suffix in (".c", ".cpp", ".hpp"))
+C_BANNED = re.compile(r"librdkafka_tpu(?!_torch)|\bjax\b|\bcffi\b")
 
 
 def _banned(name: str) -> bool:
@@ -53,3 +59,18 @@ def test_no_lookup_of_reference_modules(path):
              if isinstance(n, ast.Constant) and isinstance(n.value, str)
              and _banned(n.value.split()[0] if n.value.split() else "")]
     assert not names, f"{path.name} names {names}"
+
+
+def test_c_sources_found():
+    names = {p.name for p in C_FILES}
+    assert {"tkafka.c", "tkafka.hpp", "gpu_smoke.c", "capi_client.c",
+            "cpp_client.cpp"} <= names
+
+
+@pytest.mark.parametrize("path", C_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in C_FILES])
+def test_c_sources_name_no_reference(path):
+    """The shim, the C++ wrapper and the C examples name neither the JAX
+    package nor jax nor cffi (the port's library embeds neither)."""
+    bad = C_BANNED.findall(path.read_text())
+    assert not bad, f"{path.name} names {bad}"
