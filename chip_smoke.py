@@ -129,8 +129,35 @@ running -c as Python (the GPU provider's transport probe re-runs it);
 --backend gpu, one process calling its main() thrice, set up beside
 (c) and started after it) against the standalone mock, its msgs/s printed; each GPU run, under the provider's
 default governor, must launch on the card, and the jobs it served on
-the CPU print beside its launches.  Phase 9 fails past 60 s.  Any
-mismatch exits non-zero.
+the CPU print beside its launches.  Phase 9 fails past 60 s.  Phase 10
+runs Kafka's exactly-once copy (the consume-transform-produce loop of
+librdkafka's examples/transactions.c) through the port's public API on
+two legs, each against its own in-process mock: (a) an idempotent GPU
+Producer seeds eos-in, 64 partitions x 1,600 records x 1,024 B lz4,
+keyed by the record's global index; (b) four copier
+members, threads of this process (the first subscribes alone, the
+others once its first transaction is open), each a read_committed cooperative-sticky
+check.crcs GPU consumer of group eos-copy-<leg> and a transactional GPU
+producer (eos-copier-<leg>-<k>), copy up to 750 records a transaction
+to the same partition of eos-out, with send_offsets_to_transaction of
+the positions read and commit_transaction; every 7th transaction of a
+member (staggered by its index), and any whose group generation moved,
+is flushed and aborted and the member seeks back to its committed
+offsets; once half the input is copied member 3 closes and a fifth
+member joins; leg a on the CRC tickets, leg b with
+gpu.compress.device=true; (c) a read_committed check.crcs GPU consumer
+reads eos-out.  Every input record must be read exactly once, the
+group's committed offsets must equal eos-in's ends, every stored batch's
+CRC the native crc32c, every data batch transactional lz4 with the
+native encoder's frame (the deterministic one on leg b), at least one
+ABORT marker a cadence abort; every copier's consumer and the verifier
+launch crc_rows (control-batch regions among the verifier's), leg a's
+producers crc_rows and leg b's lz4_rows with no CRC launch; no job on a
+CPU route; every member aborts once; at least two incremental
+rebalances while transactions are open; no engine thread or child
+process left; 90 s at most.  It prints each leg's copy msgs/s, commit
+latency p50 and p99, rebalance wall time and launches.  Any mismatch
+exits non-zero.
 
 The last two lines of standard output are a ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -171,7 +198,8 @@ from librdkafka_tpu_torch.protocol.msgset import (CrcMismatch,
                                                   MsgsetWriterV2, Record,
                                                   iter_legacy_crc_regions,
                                                   write_msgset_v01)
-from librdkafka_tpu_torch.protocol.proto import V2_OF_Attributes
+from librdkafka_tpu_torch.protocol.proto import (OFFSET_BEGINNING,
+                                                V2_OF_Attributes)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 ALU_OPS_PER_S = 67e12          # H100 SXM 32-bit non-tensor peak
@@ -2571,6 +2599,678 @@ def phase_capi(p6: dict, smi: str) -> dict:
     return counts
 
 
+# --------------------------------------------------------------- phase 10 --
+
+P10_PER_PART, P10_TXN, P10_ABORT_EVERY, P10_MEMBERS = 1600, 750, 7, 4
+P10_LIMIT_S = 90
+#: seconds the mock holds the leave's rebalance open for the join
+P10_HOLD_S = 1.0
+EOS_IN, EOS_OUT = "eos-in", "eos-out"
+#: every copier consumer's group keys (heartbeats inside the mock's 3 s
+#: rebalance window)
+EOS_GROUP = {"partition.assignment.strategy": "cooperative-sticky",
+             "isolation.level": "read_committed", "check.crcs": True,
+             "enable.auto.commit": False, "auto.offset.reset": "earliest",
+             "heartbeat.interval.ms": 100, "session.timeout.ms": 6000}
+
+
+class EosError(RuntimeError):
+    """The exactly-once copy broke one of its checks."""
+
+
+def port_kit():
+    """The client package an exactly-once copy runs on: the port's.  The
+    tests pass the JAX package's names in the same shape."""
+    from types import SimpleNamespace
+
+    from librdkafka_tpu_torch import Consumer, Producer
+    from librdkafka_tpu_torch.client.consumer import TopicPartition
+    from librdkafka_tpu_torch.mock.cluster import MockCluster
+    return SimpleNamespace(Producer=Producer, Consumer=Consumer,
+                           TopicPartition=TopicPartition,
+                           MockCluster=MockCluster)
+
+
+def eos_key(i: int, j: int, per_part: int) -> bytes:
+    """The key of record j of input partition i: its global index."""
+    return b"%08d" % (i * per_part + j)
+
+
+def eos_engine(client):
+    """The client's offload engine, or None on a provider without one."""
+    return getattr(client._rk.codec_provider, "_engine", None)
+
+
+def eos_warm(client) -> None:
+    """Open a GPU (or TPU) client's device route before it counts."""
+    prov = client._rk.codec_provider
+    # the JAX package's wait_warm returns None
+    if hasattr(prov, "wait_warm") and prov.wait_warm(300) is False:
+        raise EosError("a client's device route did not warm")
+
+
+def eos_count_control(client) -> list:
+    """Count the control-batch regions the client's fetch verify hands
+    its provider's CRC ticket: [regions, control regions]."""
+    from librdkafka_tpu_torch.protocol.proto import ATTR_CONTROL
+    prov = client._rk.codec_provider
+    seen = [0, 0]
+    submit = getattr(prov, "crc32c_submit", None)
+    if submit is None:
+        return seen
+
+    def counting(bufs, *a, **kw):
+        seen[0] += len(bufs)
+        seen[1] += sum(1 for b in bufs
+                       if int.from_bytes(bytes(b[:2]), "big") & ATTR_CONTROL)
+        return submit(bufs, *a, **kw)
+    prov.crc32c_submit = counting
+    return seen
+
+
+def eos_seed(kit, bootstrap: str, vals, backend: dict) -> None:
+    """10a: an idempotent lz4 Producer writes ``vals[i][j]`` to partition
+    i of eos-in, keyed by the record's global index, timestamped by it."""
+    per = len(vals[0])
+    p = kit.Producer({"bootstrap.servers": bootstrap,
+                      "enable.idempotence": True, "compression.codec": "lz4",
+                      "linger.ms": 5, "queue.buffering.max.messages":
+                      1_000_000, **backend})
+    try:
+        eos_warm(p)
+        for j in range(per):
+            for i in range(len(vals)):
+                p.produce(EOS_IN, value=vals[i][j], key=eos_key(i, j, per),
+                          partition=i, timestamp=NOW_MS + i * per + j)
+        left = p.flush(300)
+        if left:
+            raise EosError(f"seeding eos-in left {left} messages")
+    finally:
+        p.close()
+
+
+class EosLeg:
+    """What the members of one copy leg share: the input's end offsets,
+    the offsets committed so far, the rebalance callbacks seen."""
+
+    def __init__(self, kit, name: str, bootstrap: str, hwm: dict,
+                 backend: dict, producer_extra: dict, txn_records: int,
+                 abort_every: int, exact: bool):
+        self.kit, self.name, self.bootstrap = kit, name, bootstrap
+        self.hwm = hwm
+        self.backend, self.producer_extra = backend, producer_extra
+        self.txn_records, self.abort_every = txn_records, abort_every
+        self.exact = exact
+        self.lock = threading.Lock()
+        self.committed: dict = {}
+        self.done = threading.Event()
+        self.t_begin = self.t_done = None
+        # (t, member, kind, n, generation, partitions)
+        self.events: list = []
+
+    def copied(self) -> int:
+        with self.lock:
+            return sum(self.committed.values())
+
+    def note_commit(self, offs) -> None:
+        with self.lock:
+            for tp in offs:
+                self.committed[tp.partition] = max(
+                    self.committed.get(tp.partition, 0), tp.offset)
+            if all(self.committed.get(q, 0) >= end
+                   for q, end in self.hwm.items()):
+                self.t_done = time.monotonic()
+                self.done.set()
+
+
+class EosCopier(threading.Thread):
+    """One copier member: a read_committed cooperative group consumer and
+    a transactional producer, copying eos-in to the same partition of
+    eos-out in transactions of up to ``txn_records`` records.  Every
+    ``abort_every``-th transaction of a member (the members' cycles
+    staggered by their index k) is flushed and aborted, and the member
+    seeks its assignment back to its committed offsets, as librdkafka's
+    examples/transactions.c does.  The member's clients are made, warm
+    and initialised before it waits for ``go`` to subscribe."""
+
+    def __init__(self, leg: EosLeg, k: int):
+        super().__init__(name=f"eos-copier-{leg.name}-{k}", daemon=True)
+        self.leg, self.k = leg, k
+        self.go = threading.Event()
+        self.leave = threading.Event()
+        self.assigned: set = set()
+        self.txns = self.aborts = self.commits = self.fenced = 0
+        self.commit_ms: list = []
+        self.engines: dict = {}
+        self.error = None
+
+    def run(self) -> None:
+        import traceback
+        try:
+            self._copy()
+        except Exception:         # reported by eos_copy, which raises
+            self.error = traceback.format_exc()
+            self.leg.done.set()
+
+    def _note(self, kind: str, consumer, parts) -> None:
+        leg = self.leg
+        with leg.lock:
+            keys = {tp.partition for tp in parts}
+            if kind == "assign":
+                self.assigned |= keys
+            else:
+                self.assigned -= keys
+            leg.events.append((time.monotonic(), self.k, kind, len(keys),
+                               consumer.consumer_group_metadata().generation,
+                               frozenset(keys)))
+
+    def _copy(self) -> None:
+        leg, kit = self.leg, self.leg.kit
+        tid = f"eos-copier-{leg.name}-{self.k}"
+        p = kit.Producer({"bootstrap.servers": leg.bootstrap,
+                          "transactional.id": tid, "compression.codec": "lz4",
+                          "linger.ms": 5, **leg.backend, **leg.producer_extra})
+        c = None
+        try:
+            c = kit.Consumer({"bootstrap.servers": leg.bootstrap,
+                              "group.id": f"eos-copy-{leg.name}",
+                              "client.id": tid, **EOS_GROUP, **leg.backend})
+            eos_warm(p)
+            eos_warm(c)
+            peng = eos_engine(p)
+            p_crc0 = peng.stats["launches"] if peng is not None else 0
+            p.init_transactions(60)
+
+            def on_assign(cons, parts):
+                cons.incremental_assign(parts)
+                self._note("assign", cons, parts)
+
+            def on_revoke(cons, parts):
+                cons.incremental_unassign(parts)
+                self._note("revoke", cons, parts)
+            while not (self.go.wait(0.1) or leg.done.is_set()):
+                pass
+            c.subscribe([EOS_IN], on_assign=on_assign, on_revoke=on_revoke)
+            while not leg.done.is_set() and not self.leave.is_set():
+                msgs = self._read(c)
+                if msgs:
+                    self._transaction(p, c, msgs, eos_member(c))
+            self.engines = {"consumer": eos_snapshot(eos_engine(c)),
+                            "producer": eos_snapshot(peng),
+                            "producer_crc0": p_crc0}
+        finally:
+            if c is not None:
+                c.close()
+            p.close()
+
+    def _read(self, c) -> list:
+        """Up to txn_records records of partitions still assigned (a
+        revoke served inside consume() drops that partition's records:
+        its next owner reads them from the committed offset).  ``exact``
+        reads exactly txn_records, for byte-equal runs."""
+        leg = self.leg
+        out: list = []
+        while len(out) < leg.txn_records and not leg.done.is_set():
+            for m in c.consume(leg.txn_records - len(out), 0.1):
+                if m.error is not None:
+                    raise EosError(f"{self.name}: consume: {m.error}")
+                out.append(m)
+            if not leg.exact or self.leave.is_set():
+                break
+        with leg.lock:
+            owned = set(self.assigned)
+        return [m for m in out if m.partition in owned]
+
+    def _transaction(self, p, c, msgs, member: tuple) -> None:
+        """Copy ``msgs`` in one transaction.  It aborts on the member's
+        abort cadence, and when the member's generation or id moved from
+        ``member`` (read with the records): the group may have handed
+        their partitions on, and TxnOffsetCommit (v0-2) carries no
+        generation for the coordinator to fence a stale member with
+        (KIP-447)."""
+        leg, kit = self.leg, self.leg.kit
+        p.begin_transaction()
+        with leg.lock:
+            leg.t_begin = leg.t_begin or time.monotonic()
+        hdr = [("copier", self.name.encode())]
+        for m in msgs:
+            p.produce(EOS_OUT, value=m.value, key=m.key,
+                      partition=m.partition, timestamp=m.timestamp,
+                      headers=hdr)
+        self.txns += 1
+        cadence = (self.txns + self.k) % leg.abort_every == 0
+        if cadence or eos_member(c) != member:
+            # the aborted records reach the log before the abort: its
+            # ABORT markers and the LSO are what read_committed filters
+            if p.flush(60):
+                raise EosError(f"{self.name}: flush before abort timed out")
+            p.abort_transaction(60)
+            if cadence:
+                self.aborts += 1
+            else:
+                self.fenced += 1
+            for tp in c.committed(c.assignment(), 30):
+                c.seek(kit.TopicPartition(EOS_IN, tp.partition,
+                                          tp.offset if tp.offset >= 0
+                                          else OFFSET_BEGINNING))
+            return
+        # the positions of the partitions this transaction read: after a
+        # rewind, position() of a partition not read since still names
+        # the offset delivered before the seek (ROADMAP.md queue 3)
+        offs = c.position([kit.TopicPartition(EOS_IN, q)
+                           for q in sorted({m.partition for m in msgs})])
+        p.send_offsets_to_transaction(offs, c.consumer_group_metadata(), 60)
+        t0 = time.perf_counter()
+        p.commit_transaction(60)
+        self.commit_ms.append((time.perf_counter() - t0) * 1e3)
+        self.commits += 1
+        leg.note_commit(offs)
+
+
+def eos_applied(events: list, flag: dict) -> set:
+    """The partitions the flagged move's old owner had applied through
+    its rebalance callbacks before the flag's generation."""
+    k = int(flag["from"].split("-")[3])       # eos-copier-<leg>-<k>-...
+    held: set = set()
+    for e in events:
+        if e[1] == k and e[4] < flag["gen"]:
+            held = held | e[5] if e[2] == "assign" else held - e[5]
+    return held
+
+
+def eos_member(consumer) -> tuple:
+    """The consumer's group generation and member id."""
+    md = consumer.consumer_group_metadata()
+    return md.generation, md.member_id
+
+
+def eos_snapshot(eng) -> dict | None:
+    if eng is None:
+        return None
+    return {"stats": dict(eng.stats), "compress": dict(eng.compress_stats)}
+
+
+def eos_wait(cond, what: str, timeout: float, leg: EosLeg) -> float:
+    """Seconds until ``cond()``; raises past ``timeout``."""
+    t0 = time.monotonic()
+    while not cond():
+        if time.monotonic() - t0 > timeout:
+            raise EosError(f"leg {leg.name}: timed out waiting for {what}")
+        time.sleep(0.01)
+    return time.monotonic() - t0
+
+
+def eos_copy(kit, name: str, bootstrap: str, hwm: dict, backend: dict,
+             producer_extra: dict | None = None, members: int = P10_MEMBERS,
+             txn_records: int = P10_TXN, abort_every: int = P10_ABORT_EVERY,
+             leaver: int | None = 3, cluster=None, stagger: bool = True,
+             exact: bool = False, timeout: float = 120.0) -> dict:
+    """10b: ``members`` copier threads copy eos-in to eos-out until the
+    group's committed offsets reach ``hwm``; with ``stagger`` the first
+    subscribes alone and the others once its first transaction is open
+    (two incremental rebalances under an open transaction, whose revoke
+    the first member must answer inside the mock's 3 s window: a JIT
+    compile in a first transaction can outlast it), else all at once.  Once half the input is copied
+    member ``leaver`` closes (a cooperative leave), then, given the mock
+    ``cluster``, one more member joins in the same rebalance.  Returns
+    the copiers, the seconds from the leave until the live members own
+    every partition, the rebalance callbacks and the copy's times;
+    raises if a member failed or the copy did not end."""
+    leg = EosLeg(kit, name, bootstrap, hwm, backend, producer_extra or {},
+                 txn_records, abort_every, exact)
+    copiers = [EosCopier(leg, k) for k in range(members)]
+    # the joiner's clients are made and warm before the leave
+    new = (EosCopier(leg, members)
+           if leaver is not None and cluster is not None else None)
+    total = sum(hwm.values())
+    parts = set(hwm)
+
+    def covered(live) -> bool:
+        with leg.lock:
+            owned = [c.assigned for c in live]
+        return (set().union(*owned) == parts
+                and sum(map(len, owned)) == len(parts))
+    t0 = time.monotonic()
+    for c in copiers:
+        c.start()
+    # staggered, the others' join is two incremental rebalances under
+    # the first member's open transactions
+    for c in copiers[:1 if stagger else members]:
+        c.go.set()
+    if new is not None:
+        new.start()
+        copiers.append(new)
+    rebalance_s = None
+    t_leave = None
+    try:
+        eos_wait(lambda: leg.t_begin is not None or leg.done.is_set(),
+                 "the first transaction", timeout, leg)
+        for c in copiers[1:members]:
+            c.go.set()
+        if leaver is not None:
+            eos_wait(lambda: leg.copied() * 2 >= total or leg.done.is_set(),
+                     "half the input copied", timeout, leg)
+            t_leave = time.monotonic()
+            if new is not None:
+                # the leave and the join in one rebalance, the joiner
+                # taking the leaver's unfinished partitions: in a later
+                # rebalance the sticky strip would hand it a survivor's
+                # lowest-numbered partitions, which a consumer draining a
+                # partition at a time has mostly copied.  The mock holds
+                # the generation open until P10_HOLD_S after the leave,
+                # as a broker's group.initial.rebalance.delay.ms holds a
+                # new group's first.
+                g = cluster.groups[f"eos-copy-{name}"]
+                with cluster._lock:
+                    g.hold_until = time.monotonic() + P10_HOLD_S
+            copiers[leaver].leave.set()
+            live = [c for c in copiers if c.k != leaver]
+            if new is not None:
+                new.go.set()
+                eos_wait(lambda: g.state == "PreparingRebalance"
+                         or leg.done.is_set(), "the leave's rebalance",
+                         timeout, leg)
+                with cluster._lock:
+                    g.rebalance_deadline = min(g.rebalance_deadline,
+                                               g.hold_until)
+            eos_wait(lambda: ((new is None or new.assigned)
+                              and covered(live)) or leg.done.is_set(),
+                     "the rebalances", timeout, leg)
+            rebalance_s = time.monotonic() - t_leave
+        leg.done.wait(max(0.0, timeout - (time.monotonic() - t0)))
+    finally:
+        leg.done.set()
+        for c in copiers:
+            c.join(60)
+    wall = time.monotonic() - t0
+    errs = [c.error for c in copiers if c.error]
+    if errs:
+        raise EosError(f"leg {name}: a copier failed:\n" + "\n".join(errs))
+    if any(c.is_alive() for c in copiers):
+        raise EosError(f"leg {name}: a copier did not exit")
+    if leg.copied() != total:
+        raise EosError(f"leg {name}: committed {leg.committed} of {hwm}")
+    # the generations that moved partitions while transactions were open,
+    # and those of them after the leave
+    moved = {e[4]: e[0] for e in leg.events
+             if e[3] and leg.t_begin is not None and e[0] >= leg.t_begin}
+    after = {g for g, t in moved.items()
+             if t_leave is not None and t >= t_leave}
+    # the copy's own time: first assignment to the last commit
+    copy_s = leg.t_done - min(e[0] for e in leg.events)
+    return {"copiers": copiers, "rebalance_s": rebalance_s, "wall_s": wall,
+            "copy_s": copy_s, "events": list(leg.events),
+            "rebalances": len(moved), "after_leave": len(after),
+            "t_leave": t_leave or t0, "t0": t0}
+
+
+def eos_read(kit, bootstrap: str, backend: dict, parts: int, n: int,
+             name: str) -> dict:
+    """10c: a read_committed check.crcs Consumer reads eos-out from the
+    beginning: every record it returns, as (partition, key, value,
+    copier), with its engine and the regions its fetch verify handed the
+    CRC ticket."""
+    c = kit.Consumer({"bootstrap.servers": bootstrap,
+                      "group.id": f"eos-verify-{name}",
+                      "isolation.level": "read_committed",
+                      "check.crcs": True, "auto.offset.reset": "earliest",
+                      **backend})
+    try:
+        eos_warm(c)
+        regions = eos_count_control(c)
+        c.assign([kit.TopicPartition(EOS_OUT, i, OFFSET_BEGINNING)
+                  for i in range(parts)])
+        got: list = []
+        deadline = time.monotonic() + 120
+        quiet_until = None
+        while quiet_until is None or time.monotonic() < quiet_until:
+            if time.monotonic() > deadline:
+                raise EosError(f"eos-out {name}: read {len(got)} of {n}")
+            for m in c.consume(10_000, 0.1):
+                if m.error is not None:
+                    raise EosError(f"eos-out {name}: {m.error}")
+                got.append((m.partition, m.key, m.value,
+                            dict(m.headers or []).get("copier")))
+            if quiet_until is None and len(got) >= n:
+                quiet_until = time.monotonic() + 0.5   # nothing more
+        return {"records": got, "engine": eos_snapshot(eos_engine(c)),
+                "regions": regions[0], "control_regions": regions[1]}
+    finally:
+        c.close()
+
+
+def eos_exactly_once(vals, got: list) -> None:
+    """Every input record appears once in what was read, in its input
+    partition, and nothing else does."""
+    per = len(vals[0])
+    want = {eos_key(i, j, per): (i, v) for i, vs in enumerate(vals)
+            for j, v in enumerate(vs)}
+    seen: dict = {}
+    for part, key, value, _who in got:
+        if want.get(key) != (part, value):
+            raise EosError(f"eos-out: a record no input has: {key!r} in "
+                           f"partition {part}")
+        seen[key] = seen.get(key, 0) + 1
+    dup = [k for k, c in seen.items() if c > 1]
+    if dup or len(seen) != len(want):
+        raise EosError(f"eos-out: {len(dup)} records twice, "
+                       f"{len(want) - len(seen)} missing")
+
+
+def eos_stored(cluster, parts: int, det: bool | None) -> dict:
+    """Every stored batch of eos-out: its CRC == the native crc32c of its
+    region, every data batch transactional lz4 whose frame == the native
+    encoder's (``det``: the deterministic one; None: not compared), every
+    control batch counted by type."""
+    from librdkafka_tpu_torch.protocol.msgset import (iter_batches,
+                                                      parse_records_v2)
+    from librdkafka_tpu_torch.protocol.proto import CTRL_ABORT
+    out = {"data": 0, "commit": 0, "abort": 0}
+    for i in range(parts):
+        infos, regions, frames = [], [], []
+        for _base, blob in cluster.partition(EOS_OUT, i).log:
+            for info, payload, full in iter_batches(blob):
+                infos.append(info)
+                regions.append(bytes(full[V2_OF_Attributes:]))
+                if info.is_control:
+                    key = parse_records_v2(info, payload)[0].key
+                    # the control record's key: version i16, type i16
+                    kind = ("abort" if int.from_bytes(key[2:4], "big")
+                            == CTRL_ABORT else "commit")
+                    out[kind] += 1
+                    continue
+                if not (info.is_transactional and info.codec == "lz4"):
+                    raise EosError(f"eos-out[{i}]: a data batch is not "
+                                   f"transactional lz4 ({info.codec})")
+                frames.append(bytes(payload))
+                out["data"] += 1
+        if native.crc32c_many(regions).tolist() != [x.crc for x in infos]:
+            raise EosError(f"eos-out[{i}]: a batch CRC != the native crc32c")
+        if det is not None and frames:
+            raws = native.lz4f_decompress_many(frames, None)
+            enc = (det_frames(raws) if det
+                   else native.lz4f_compress_many(raws))
+            if enc != frames:
+                raise EosError(f"eos-out[{i}]: an lz4 frame != the native "
+                               f"{'deterministic' if det else 'default'} "
+                               "encoder's")
+    return out
+
+
+def live_children() -> set:
+    """Pids of this process's children that have not exited."""
+    me, out = str(os.getpid()), set()
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                st = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if st[1] == me and st[0] != "Z":
+            out.add(int(d))
+    return out
+
+
+def p10_leg(tag: str, extra: dict, vals, cluster, hwm: dict,
+            device: str, txn_records: int) -> dict:
+    """10b and 10c for one leg on the card: the copy, its figures, then
+    every check of the phase; returns the leg's launches and figures."""
+    parts = len(vals)
+    backend = {"compression.backend": "gpu", "gpu.device": device, **P6_GPU}
+    boot = cluster.bootstrap_servers()
+    crc.launches = 0
+    lz4.launches = 0
+    res = eos_copy(port_kit(), tag, boot, hwm, backend, extra,
+                   txn_records=txn_records, cluster=cluster)
+    copy_crc, copy_lz4 = crc.launches, lz4.launches
+    copiers = res["copiers"]
+    n = sum(hwm.values())
+    rate = n / res["copy_s"]
+    read = eos_read(port_kit(), boot, backend, parts, n, tag)
+    counts = {"crc_rows": crc.launches, "lz4_rows": lz4.launches}
+    dev = bool(extra)
+    stored = eos_stored(cluster, parts, det=dev)
+    lat = sorted(x for cp in copiers for x in cp.commit_ms)
+    p50 = lat[len(lat) // 2]
+    p99 = lat[min(len(lat) - 1, int(len(lat) * 0.99))]
+    print(f"phase 10{tag}: {'gpu.compress.device' if dev else 'CRC tickets'}"
+          f": {n} records, {len(copiers)} members (txns, commits, aborts, "
+          f"aborts on a new generation, partitions at the end: "
+          f"{[(cp.txns, cp.commits, cp.aborts, cp.fenced, len(cp.assigned)) for cp in copiers]}"
+          f"), {res['rebalances']} incremental rebalances while "
+          f"transactions were open ({res['after_leave']} after the leave); "
+          f"eos-out "
+          f"{stored}")
+    print(f"  copy {rate:.1f} msgs/s ({res['copy_s']:.3f} s from the first "
+          f"assignment, {res['wall_s']:.3f} s with set-up; leave and join "
+          f"at {res['t_leave'] - res['t0']:.3f} s); commit "
+          f"latency p50 {p50:.3f} ms, p99 {p99:.3f} ms over {len(lat)}; "
+          f"rebalance wall time (leave and join until every partition is "
+          f"owned again) {res['rebalance_s']:.3f} s")
+    print("  rebalance callbacks (s from the leave, member, kind, "
+          "partitions, generation): " + str(
+              [(round(e[0] - res["t_leave"], 3), e[1], e[2], e[3], e[4])
+               for e in res["events"] if e[3]]))
+    print(f"  launches: crc_rows {counts['crc_rows']} (copy {copy_crc}), "
+          f"lz4_rows {counts['lz4_rows']} (copy {copy_lz4}); copier "
+          f"consumers' CRC launches "
+          f"{[cp.engines['consumer']['stats']['launches'] for cp in copiers]}"
+          f", producers' "
+          f"{[(cp.engines['producer']['stats']['launches'] - cp.engines['producer_crc0'], cp.engines['producer']['compress']['launches']) for cp in copiers]}"
+          f" (crc, lz4); verifier {read['engine']['stats']['launches']} over "
+          f"{read['regions']} regions, {read['control_regions']} of them "
+          f"control batches")
+    eos_exactly_once(vals, read["records"])
+    g = cluster.groups[f"eos-copy-{tag}"]
+    offs = {q: g.offsets.get((EOS_IN, q), (-1,))[0] for q in hwm}
+    check(offs == hwm, f"10{tag}: committed offsets != eos-in's ends: "
+          f"{ {q: (offs[q], hwm[q]) for q in hwm if offs[q] != hwm[q]} }")
+    # the mock books a generation's owners at the leader's SyncGroup; a
+    # member whose own SyncGroup then meets the next rebalance never
+    # received those partitions, yet stays booked as their owner.  A flag
+    # is a fault only if the old owner had applied the partition.
+    real = [e for e in g.validation_errors
+            if e["kind"] != "moved_without_revoke"
+            or e["partition"] in eos_applied(res["events"], e)]
+    check(not real, f"10{tag}: a partition moved from a member that held "
+          f"it, without a revoke: {real[:3]}")
+    if g.validation_errors:
+        print(f"  the mock's ownership book flagged {len(g.validation_errors)}"
+              f" move(s) from a member that never received the partition "
+              f"(its SyncGroup met the next rebalance): "
+              f"{g.validation_errors[:2]}")
+    for cp in copiers:
+        ce, pe = cp.engines["consumer"], cp.engines["producer"]
+        check(ce["stats"]["launches"] > 0,
+              f"10{tag}: copier {cp.k}'s consumer made no CRC launch")
+        for eng_snap, what in ((ce, "consumer"), (pe, "producer")):
+            bad = {k: eng_snap["stats"][k] for k in (
+                "warmup_miss_jobs", "routed_cpu_jobs", "cpu_fallback_jobs")
+                if eng_snap["stats"][k]}
+            if dev and what == "producer":
+                bad.update({k: eng_snap["compress"][k] for k in (
+                    "cpu_jobs", "warmup_miss_jobs", "routed_cpu_jobs",
+                    "shed_jobs") if eng_snap["compress"][k]})
+            check(not bad, f"10{tag}: copier {cp.k}'s {what} served jobs on "
+                  f"the CPU: {bad}")
+        if dev:
+            check(pe["compress"]["launches"] > 0,
+                  f"10{tag}: copier {cp.k}'s producer made no LZ4 launch")
+            check(pe["stats"]["launches"] == cp.engines["producer_crc0"],
+                  f"10{tag}: copier {cp.k}'s producer made CRC launches "
+                  "(its batch CRCs fold from the frames)")
+        else:
+            check(pe["stats"]["launches"] > cp.engines["producer_crc0"],
+                  f"10{tag}: copier {cp.k}'s producer made no CRC launch")
+        check(cp.aborts >= 1, f"10{tag}: copier {cp.k} never aborted")
+    check(read["engine"]["stats"]["launches"] > 0
+          and read["control_regions"] > 0,
+          f"10{tag}: the verifier made {read['engine']['stats']['launches']}"
+          f" CRC launches over {read['control_regions']} control regions")
+    check(not any(read["engine"]["stats"][k] for k in (
+        "warmup_miss_jobs", "routed_cpu_jobs", "cpu_fallback_jobs")),
+        f"10{tag}: the verifier served jobs on the CPU")
+    check(res["rebalances"] >= 2 and res["after_leave"] >= 1,
+          f"10{tag}: {res['rebalances']} incremental rebalances while "
+          f"transactions were open ({res['after_leave']} after the leave), "
+          "not at least 2 (1)")
+    check(stored["abort"] >= sum(cp.aborts for cp in copiers),
+          f"10{tag}: {stored['abort']} ABORT markers for "
+          f"{sum(cp.aborts for cp in copiers)} cadence aborts")
+    if dev:
+        check(copy_lz4 > 0, f"10{tag}: no LZ4 launch in the copy")
+    return {"counts": counts, "rate": rate, "p50": p50, "p99": p99}
+
+
+def phase_eos(smi: str, parts: int = PARTITIONS,
+              per_part: int = P10_PER_PART, device: str = "cuda",
+              txn_records: int = P10_TXN) -> dict:
+    """Phase 10: the exactly-once copy (10a seed, 10b two legs of
+    copiers, 10c verify) on the card.  Returns its launches."""
+    import gc
+    t0 = time.perf_counter()
+    children0 = live_children()
+    flat = payloads(parts * per_part, VALUE_SIZE)
+    vals = [flat[i * per_part:(i + 1) * per_part] for i in range(parts)]
+    kit = port_kit()
+    legs = {}
+    for tag, extra in (("a", {}), ("b", {"gpu.compress.device": True})):
+        cluster = kit.MockCluster(num_brokers=1,
+                                  topics={EOS_IN: parts, EOS_OUT: parts})
+        try:
+            eos_seed(kit, cluster.bootstrap_servers(), vals,
+                     {"compression.backend": "gpu", "gpu.device": device,
+                      **P6_GPU})
+            hwm = {i: cluster.partition(EOS_IN, i).end_offset
+                   for i in range(parts)}
+            check(hwm == {i: per_part for i in range(parts)},
+                  f"10a: eos-in's ends {set(hwm.values())}")
+            legs[tag] = p10_leg(tag, extra, vals, cluster, hwm, device,
+                                txn_records)
+        finally:
+            cluster.stop()
+    gc.collect()
+    deadline = time.monotonic() + 5
+    while time.monotonic() < deadline and [
+            t for t in threading.enumerate() if "engine" in t.name]:
+        time.sleep(0.05)
+    left = [t.name for t in threading.enumerate() if "engine" in t.name
+            or t.name.startswith("eos-copier")]
+    check(not left, f"phase 10: threads left after close(): {left}")
+    kids = live_children() - children0
+    check(not kids, f"phase 10: child processes left: {kids}")
+    secs = time.perf_counter() - t0
+    print(f"  {smi}")
+    check(secs <= P10_LIMIT_S, f"phase 10 took {secs:.3f} s, over its "
+          f"{P10_LIMIT_S} s")
+    print(f"phase 10: ok ({secs:.3f} s: 10a seed, 10b copy and 10c verify "
+          f"on two legs, {parts} x {per_part} x {VALUE_SIZE} B)")
+    return {k: sum(leg["counts"][k] for leg in legs.values())
+            for k in ("crc_rows", "lz4_rows")}
+
+
 def kernel_line(main: dict, timing: dict, max_err: int) -> dict:
     """The crc_rows entry at the main path's shape (its produce regions
     as packed segments)."""
@@ -2601,12 +3301,14 @@ def main() -> None:
     mp = phase_mesh(comp, client)
     robust = phase_robustness()
     capi = phase_capi(client, dev["smi"])
+    eos = phase_eos(dev["smi"])
     cnt = mp["counts"]
     main_path["launches"] += (engine["launches"] + client["crc_rows"]
                               + cnt["crc_rows"] + robust["crc_rows"]
-                              + capi["crc_rows"])
+                              + capi["crc_rows"] + eos["crc_rows"])
     comp["launches"] += (client["lz4_rows"] + cnt["lz4_rows"]
-                         + robust["lz4_rows"] + capi["lz4_rows"])
+                         + robust["lz4_rows"] + capi["lz4_rows"]
+                         + eos["lz4_rows"])
     line = kernel_line(main_path, timing, max(max_err, engine["max_err"]))
     lz4_line = {"name": "lz4_rows", "route": "cuda",
                 "source": "librdkafka_tpu_torch/csrc/lz4_rows.cu",

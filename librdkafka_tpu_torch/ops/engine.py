@@ -670,6 +670,10 @@ class AsyncOffloadEngine:
         # fan-in occupancy
         self._inflight_cnt = 0
         self._fanin_last = 0
+        # this engine holds the compress kernel's warm registry until
+        # its close() (lz4_torch.drop_device_kernels)
+        _lz4.hold_device_kernels()
+        self._lz4_held = True
         self._thread = threading.Thread(target=self._main, daemon=True,
                                         name=name)
         self._thread.start()
@@ -776,13 +780,15 @@ class AsyncOffloadEngine:
         could not reach (a wedged or crashed dispatch thread, or a join
         timeout) is FAILED rather than left to hang its waiter in
         Ticket.result().  The staging rings are released once the
-        dispatch thread has exited, and the compress kernel's warm
-        registry with them (lz4_torch.release_device_kernels: no warm
-        state outlives the engine); an engine of several lanes also
-        releases the sharded steps (parallel/mesh.py
+        dispatch thread has exited, and this engine's hold on the
+        compress kernel's warm registry with them
+        (lz4_torch.drop_device_kernels: no warm state outlives the last
+        engine, and none is taken from a live one); an engine of several
+        lanes also releases the sharded steps (parallel/mesh.py
         release_step_cache)."""
         with self._cond:
             self._closed = True
+            held, self._lz4_held = self._lz4_held, False
             self._cond.notify()
         self._thread.join(timeout)
         if self._warmup_thread is not None:
@@ -790,7 +796,8 @@ class AsyncOffloadEngine:
             # progress finishes (it cannot be cancelled) and the thread
             # exits — deterministic drain, no leak
             self._warmup_thread.join(timeout)
-        _lz4.release_device_kernels()
+        if held:
+            _lz4.drop_device_kernels()
         if self._shard_lane is not None:
             _mesh.release_step_cache()
         if self._thread.is_alive():

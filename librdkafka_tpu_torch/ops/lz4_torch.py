@@ -807,11 +807,15 @@ def read_lz4(slot: "_crc.Slot", plan: Lz4Plan, handle: Lz4Launch,
 # The port of lz4_jax.py's warm registry (:220-357), keyed by device.  One
 # build serves every shape, so a device is warm once the build is loaded,
 # the CRC constants are on that device and one launch on a small row has
-# matched the plain version there.  The engine owns the registry: its
-# close() drops it (release_device_kernels), and the tests assert
-# device_kernel_count() == 0 afterwards.
+# matched the plain version there.  The live engines own the registry:
+# each holds it from its start, the last one's close() drops it
+# (drop_device_kernels), and the tests assert device_kernel_count() == 0
+# once every engine is closed.  (The JAX package drops it at ANY engine's
+# close, which sends every other live engine's compress jobs to the CPU
+# until it re-warms.)
 
 _READY: dict[str, bool] = {}
+_HOLDERS = 0                    # engines started and not yet closed
 _warm_lock = threading.Lock()
 
 
@@ -863,9 +867,28 @@ def device_kernel_count() -> int:
 
 
 def release_device_kernels() -> None:
-    """Drop the warm registry (AsyncOffloadEngine.close())."""
+    """Drop the warm registry."""
     with _warm_lock:
         _READY.clear()
+
+
+def hold_device_kernels() -> None:
+    """An engine starts: the registry stays until every holder has
+    let go (AsyncOffloadEngine.__init__)."""
+    global _HOLDERS
+    with _warm_lock:
+        _HOLDERS += 1
+
+
+def drop_device_kernels() -> None:
+    """An engine closed (AsyncOffloadEngine.close()): the last live
+    engine's close drops the registry; an earlier one leaves it warm for
+    the engines still running."""
+    global _HOLDERS
+    with _warm_lock:
+        _HOLDERS -= 1
+        if not _HOLDERS:
+            _READY.clear()
 
 
 def release() -> None:

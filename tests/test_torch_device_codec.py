@@ -195,6 +195,31 @@ def test_engine_compress_warm_gate_routes_cpu_then_device():
         _close(eng)
 
 
+def test_engine_close_leaves_a_live_engines_compress_route_warm():
+    """Several clients in one process each run an engine: one client's
+    close() must not take the warm compress kernel from another's live
+    engine (the JAX package's ``release_device_kernels`` at any engine's
+    close sends the others' compress jobs to the CPU as warmup misses
+    until they re-warm).  The registry empties with the last engine."""
+    kw = dict(devices=["cpu"], depth=2, min_batches=1, warmup=True,
+              cpu_fallback=_port_crc_fallback, cpu_compress_fallback=_det)
+    live = AsyncOffloadEngine(**kw)
+    leaving = AsyncOffloadEngine(**kw)
+    try:
+        assert live.lz4_warm_wait(180) and leaving.lz4_warm_wait(180)
+        leaving.close()
+        assert lz4_torch.device_kernel_count() == 1
+        bufs = [b"still warm " * 90]
+        assert _frames(live.submit_compress(bufs, window=False)) == \
+            _det(bufs)
+        assert live.compress_stats["launches"] == 1
+        assert live.compress_stats["warmup_miss_jobs"] == 0
+        leaving.close()         # a second close() lets go of nothing
+        assert lz4_torch.device_kernel_count() == 1
+    finally:
+        _close(live, leaving)
+
+
 def test_engine_compress_failed_warmup_fails_tickets(monkeypatch):
     """A lane whose compress kernel cannot be built or checked never
     opens: its jobs fail with that error rather than live on the CPU."""

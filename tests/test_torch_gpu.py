@@ -11,8 +11,9 @@ an SM and its stage clocks, beside a CRC launch on another stream, and
 through the engine's compress route, the sharded steps (kernels G
 and H of parallel/mesh.py) on four shards of the visible cards, through
 the engine and the entry points, the robustness tier (the QoS flood
-scenario and the stress gate) with its device legs on the card, and the
-C ABI (capi/gpu_smoke.c through libtkafka.so) on the card.  Marked
+scenario and the stress gate) with its device legs on the card, the
+C ABI (capi/gpu_smoke.c through libtkafka.so) on the card, and the
+exactly-once copy of chip_smoke.py phase 10 at a small size.  Marked
 ``gpu``; each skips on a host without CUDA.  On a card
 (tests/conftest.py imports jax, which the GPU host lacks):
 
@@ -688,3 +689,57 @@ def test_capi_round_trip_on_card(card, tmp_path):
             assert prod["launches"] > 0 and prod["compress.launches"] == 0
         else:
             assert prod["compress.launches"] > 0 and prod["launches"] == 0
+
+
+# ------------------------------------------------ the exactly-once copy --
+
+@pytest.mark.parametrize("leg", ["a", "b"])
+def test_eos_copy_on_card(card, leg):
+    """chip_smoke.py phase 10's loop at the CPU test's size on the card
+    (tests/test_torch_eos.py): 8 partitions x 100 records of 64-1,024 B,
+    two copiers of 25 records a transaction, every 3rd aborted, one
+    leaving midway.  Every input record is read once under
+    read_committed, the group's offsets reach the input's ends, the
+    consumers launch crc_rows and leg b's producers lz4_rows (their batch
+    CRCs folded: no CRC launch)."""
+    import chip_smoke as eos
+    parts, per = 8, 100
+    rng = np.random.default_rng(10)
+    vals = [[rng.integers(0, 16, int(rng.integers(64, 1025)))
+             .astype(np.uint8).tobytes() for _ in range(per)]
+            for _ in range(parts)]
+    kit = eos.port_kit()
+    backend = {"compression.backend": "gpu", "gpu.device": "cuda",
+               "gpu.governor": False, "gpu.launch.min.batches": 1}
+    extra = {"gpu.compress.device": True} if leg == "b" else {}
+    cluster = kit.MockCluster(num_brokers=1,
+                              topics={eos.EOS_IN: parts, eos.EOS_OUT: parts})
+    try:
+        boot = cluster.bootstrap_servers()
+        eos.eos_seed(kit, boot, vals, backend)
+        hwm = {i: per for i in range(parts)}
+        res = eos.eos_copy(kit, leg, boot, hwm, backend, extra, members=2,
+                           txn_records=25, abort_every=3, leaver=1,
+                           timeout=120)
+        read = eos.eos_read(kit, boot, backend, parts, parts * per, leg)
+        eos.eos_exactly_once(vals, read["records"])
+        g = cluster.groups[f"eos-copy-{leg}"]
+        assert {q: g.offsets[(eos.EOS_IN, q)][0] for q in hwm} == hwm
+        eos.eos_stored(cluster, parts, det=leg == "b")
+    finally:
+        cluster.stop()
+    assert read["engine"]["stats"]["launches"] > 0
+    assert read["control_regions"] > 0
+    for c in res["copiers"]:
+        ce, pe = c.engines["consumer"], c.engines["producer"]
+        assert ce["stats"]["launches"] > 0
+        for snap in (ce, pe):
+            assert not any(snap["stats"][k] for k in (
+                "warmup_miss_jobs", "routed_cpu_jobs", "cpu_fallback_jobs"))
+        if leg == "b":
+            assert pe["compress"]["launches"] > 0
+            assert pe["stats"]["launches"] == c.engines["producer_crc0"]
+            assert not any(pe["compress"][k] for k in (
+                "cpu_jobs", "warmup_miss_jobs", "routed_cpu_jobs"))
+        else:
+            assert pe["stats"]["launches"] > c.engines["producer_crc0"]
