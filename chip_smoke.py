@@ -156,8 +156,41 @@ producers crc_rows and leg b's lz4_rows with no CRC launch; no job on a
 CPU route; every member aborts once; at least two incremental
 rebalances while transactions are open; no engine thread or child
 process left; 90 s at most.  It prints each leg's copy msgs/s, commit
-latency p50 and p99, rebalance wall time and launches.  Any mismatch
-exits non-zero.
+latency p50 and p99, rebalance wall time and launches.  Phase 11 holds
+the producer's delivery path and the consumer's API on the card, through
+functions that take a client kit (port_kit(); the CPU tests pass the
+JAX package's), on two legs ((a) CRC tickets, (b) gpu.compress.device=
+true; governor off, warm), each against its own in-process mock of three
+brokers: (a) an idempotent lz4 Producer with dr_msg_cb and dr_batch_cb
+sends 64 partitions x 1,600 records x 1,024 B, all led by broker 1,
+through produce_batch, a quarter of them with headers and a quarter with
+explicit timestamps; flush() must return 0 with every DR served, each
+success DR the produced record (headers, timestamp) at its stored
+offset, each DR batch a stored batch, every stored batch's CRC the
+native crc32c and its frame the native encoder's (the deterministic one
+on leg b); then the error DRs on broker 3's topics, each per message
+with its payload: a mixed produce_batch with an unknown partition, a
+message.timeout.ms expiry while the mock holds the broker down, and
+purge(in_flight) while it holds a request; (b) a check.crcs Consumer
+with client.rack reads every record with consume(num_messages=...),
+the even partitions from broker 2 as follower (KIP-392), pauses and
+resumes half the partitions, withdraws the follower midway (reading goes
+back to the leader), seeks a quarter of the partitions back 300 records
+with fetched partitions parked in the verify pipeline, looks offsets up
+by stored timestamps, commits to offset.store.method=file and restarts
+from the files; every record after each seek point once and in order
+with its headers and timestamp, fetches on the follower and on the
+leader in the mock's request_log, CRC launches in each half; a regex
+subscription then reads a matching topic created mid-run.  The
+producer launches crc_rows on leg a and lz4_rows with no CRC launch on
+leg b; no job of a counted client takes a CPU route.  (c) A GPU Producer
+and Consumer with tickets in flight, the mock no longer answering
+broker 2 and the consumer's broker-2 thread wedged: close() returns in
+time, the engines are closed with their threads gone (checked on the
+engine: Kafka.close() swallows its error), every ticket waiter returns
+or fails "closed", and a fresh client launches crc_rows with exact CRCs.
+It prints each leg's produce, follower and leader consume msgs/s and
+launches; phase 11 fails past 60 s.  Any mismatch exits non-zero.
 
 The last two lines of standard output are a ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -3271,6 +3304,883 @@ def phase_eos(smi: str, parts: int = PARTITIONS,
             for k in ("crc_rows", "lz4_rows")}
 
 
+# --------------------------------------------------------------- phase 11 --
+
+P11_PER_PART = 1600
+P11_LIMIT_S = 60
+#: explicit record timestamps start here, above any wall clock, so each
+#: batch's max timestamp is its last explicit one (offsets_for_times)
+P11_TS0 = 4_000_000_000_000
+#: records in each error-DR case
+P11_ERR = 64
+#: the main topic's leader, the follower of its even partitions, and the
+#: broker the error-DR topics live on (the one the mock holds back)
+P11_LEADER, P11_FOLLOWER, P11_ERR_BROKER = 1, 2, 3
+#: seconds Kafka.close() may take past its flush: a wedged broker
+#: thread's 2 s join, the main thread's, the engine's drain
+P11_CLOSE_S = 5.0
+
+
+class ApiError(RuntimeError):
+    """Phase 11 (the delivery path and the consumer's API) broke one of
+    its checks."""
+
+
+def p11_check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ApiError(msg)
+
+
+def p11_record(i: int, j: int, per: int, value: bytes) -> dict:
+    """Record j of partition i as a produce_batch dict: keyed by its
+    global index; every 4th (j % 4 == 1) carries headers, every 4th
+    (j % 4 == 2) an explicit timestamp."""
+    g = i * per + j
+    m = {"value": value, "key": b"%08d" % g, "partition": i}
+    if j % 4 == 1:
+        m["headers"] = [("idx", b"%d" % g), ("nil", None)]
+    elif j % 4 == 2:
+        m["timestamp"] = P11_TS0 + g
+    return m
+
+
+def p11_same(rec, i: int, j: int, vals) -> bool:
+    """Whether ``rec`` (a Message or a parsed Record) at offset j of
+    partition i is the record produced there: key, value, headers, and
+    the explicit timestamp where it has one."""
+    per = len(vals[0])
+    if not 0 <= j < per:
+        return False
+    want = p11_record(i, j, per, vals[i][j])
+    return (rec.key == want["key"] and rec.value == want["value"]
+            and list(rec.headers or ()) == want.get("headers", [])
+            and rec.timestamp == want.get("timestamp", rec.timestamp))
+
+
+def p11_cluster(kit, tag: str, parts: int):
+    """Three in-process brokers: the main topic p11-<tag>, every
+    partition led by broker 1 (broker 2 becomes the follower of the even
+    ones in 11b), and broker 3 for the error-DR topics."""
+    cluster = kit.MockCluster(num_brokers=3, topics={f"p11-{tag}": parts},
+                              auto_create_topics=False)
+    for i in range(parts):
+        cluster.set_partition_leader(f"p11-{tag}", i, P11_LEADER)
+    return cluster
+
+
+def p11_topic_known(client, topic: str) -> None:
+    """Wait for the client's metadata to know ``topic``'s partitions."""
+    client.rk.get_topic(topic)
+    deadline = time.monotonic() + 30
+    while client.rk.topics[topic].partition_cnt <= 0:
+        p11_check(time.monotonic() < deadline, f"{topic}: no metadata")
+        client.poll(0.05)
+
+
+def p11_stored(cluster, topic: str, vals, det: bool | None) -> dict:
+    """Every stored batch of the main topic: its CRC == the native
+    crc32c of its region, its frame == the native encoder's (the
+    deterministic one when ``det``; None: not compared), its records
+    the produced ones at their offsets with their headers and explicit
+    timestamps, one idempotent producer id and epoch, base sequences
+    running on.  Returns each partition's [(base offset, records)] and
+    [(base offset, max timestamp)]."""
+    from librdkafka_tpu_torch.protocol.msgset import (iter_batches,
+                                                      parse_records_v2)
+    per = len(vals[0])
+    out = {"batches": [], "max_ts": []}
+    pids = set()
+    for i in range(len(vals)):
+        infos, frames, regions = [], [], []
+        for _base, blob in cluster.partition(topic, i).log:
+            for info, payload, full in iter_batches(blob):
+                p11_check(info.magic == 2 and info.codec == "lz4",
+                          f"{topic}[{i}]: a batch is magic {info.magic} "
+                          f"codec {info.codec}")
+                infos.append(info)
+                frames.append(bytes(payload))
+                regions.append(bytes(full[V2_OF_Attributes:]))
+        p11_check(native.crc32c_many(regions).tolist()
+                  == [x.crc for x in infos],
+                  f"{topic}[{i}]: a batch CRC != the native crc32c")
+        raws = native.lz4f_decompress_many(frames, None)
+        if det is not None:
+            enc = (det_frames(raws) if det
+                   else native.lz4f_compress_many(raws))
+            p11_check(enc == frames, f"{topic}[{i}]: an lz4 frame != the "
+                      f"native {'deterministic' if det else 'default'} "
+                      "encoder's")
+        nxt = 0
+        for info, raw in zip(infos, raws):
+            p11_check(info.base_sequence == nxt and info.base_offset == nxt,
+                      f"{topic}[{i}]: batch at offset {info.base_offset}, "
+                      f"sequence {info.base_sequence}, after {nxt} records")
+            pids.add((info.producer_id, info.producer_epoch))
+            for r in parse_records_v2(info, raw):
+                p11_check(p11_same(r, i, r.offset, vals),
+                          f"{topic}[{i}]: stored record at offset "
+                          f"{r.offset} != produced")
+            nxt += info.record_count
+        p11_check(nxt == per, f"{topic}[{i}]: {nxt} records stored of {per}")
+        out["batches"].append([(x.base_offset, x.record_count)
+                               for x in infos])
+        out["max_ts"].append([(x.base_offset, x.max_timestamp)
+                              for x in infos])
+    p11_check(len(pids) == 1 and next(iter(pids))[0] >= 0,
+              f"{topic}: producer id/epoch not one idempotent pair: {pids}")
+    return out
+
+
+def p11_no_cpu(snap: dict | None, what: str, compress: bool) -> None:
+    """An engine snapshot of a counted client: no job on a CPU route."""
+    if snap is None:
+        return
+    bad = {k: snap["stats"][k] for k in (
+        "warmup_miss_jobs", "routed_cpu_jobs", "cpu_fallback_jobs")
+        if snap["stats"][k]}
+    if compress:
+        bad.update({k: snap["compress"][k] for k in (
+            "cpu_jobs", "warmup_miss_jobs", "routed_cpu_jobs", "shed_jobs")
+            if snap["compress"][k]})
+    p11_check(not bad, f"{what}: jobs served on the CPU: {bad}")
+
+
+def p11_wait(client, cond, what: str, timeout: float = 30.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        p11_check(time.monotonic() < deadline, f"timed out: {what}")
+        client.poll(0.05)
+
+
+def p11_delivery(kit, cluster, vals, backend: dict, tag: str,
+                 det: bool | None = None, chunk: int = 100) -> dict:
+    """11a: an idempotent lz4 Producer with dr_msg_cb and dr_batch_cb
+    sends every record of ``vals`` through produce_batch (a quarter with
+    headers, a quarter with explicit timestamps) and flush()es; every DR
+    must have been served when flush() returns 0, each success DR the
+    produced record at its stored offset, each DR batch a stored batch.
+    Then the error DRs on broker 3's topics: a mixed produce_batch with
+    an unknown partition (per-message errors), a message.timeout.ms
+    expiry while the mock holds the broker down, and purge(in_flight)
+    while the mock holds a request."""
+    parts, per = len(vals), len(vals[0])
+    n = parts * per
+    topic = f"p11-{tag}"
+    bad: list = []
+    seen = {"ok": 0, "batch": 0}
+    other: dict = {}            # topic -> [(error name, value, offset)]
+    other_batch: dict = {}      # topic -> records in dr_batch_cb
+    dr_batches = [[] for _ in range(parts)]
+
+    def on_msg(err, m):
+        if m.topic != topic:
+            other.setdefault(m.topic, []).append(
+                (None if err is None else err.code.name, m.value, m.offset))
+            return
+        if err is not None or not p11_same(m, m.partition, m.offset, vals):
+            bad.append((err, m.partition, m.offset))
+        seen["ok"] += 1
+
+    def on_batch(msgs):
+        if msgs and msgs[0].topic != topic:
+            other_batch[msgs[0].topic] = (other_batch.get(msgs[0].topic, 0)
+                                          + len(msgs))
+            return
+        offs = [m.offset for m in msgs]
+        parts_of = {m.partition for m in msgs}
+        if (len(parts_of) != 1 or offs != list(range(offs[0],
+                                                     offs[0] + len(offs)))
+                or any(m.error is not None for m in msgs)):
+            bad.append(("batch", sorted(parts_of), offs[:3]))
+        else:
+            dr_batches[msgs[0].partition].append((offs[0], len(offs)))
+        seen["batch"] += len(msgs)
+
+    p = kit.Producer({"bootstrap.servers": cluster.bootstrap_servers(),
+                      "enable.idempotence": True, "compression.codec": "lz4",
+                      "linger.ms": 5, "queue.buffering.max.messages":
+                      1_000_000, "dr_msg_cb": on_msg, "dr_batch_cb": on_batch,
+                      **backend})
+    try:
+        eos_warm(p)
+        eng = eos_engine(p)
+        s0 = eos_snapshot(eng)
+        msgs = [[p11_record(i, j, per, vals[i][j]) for j in range(per)]
+                for i in range(parts)]
+        queued = 0
+        t0 = time.perf_counter()
+        for c0 in range(0, per, chunk):
+            for i in range(parts):
+                queued += p.produce_batch(topic, msgs[i][c0:c0 + chunk])
+        left = p.flush(300)
+        secs = time.perf_counter() - t0
+        served = dict(seen)
+        s1 = eos_snapshot(eng)
+        p11_check(queued == n and not any("error" in m for ms in msgs
+                                          for m in ms),
+                  f"11a {tag}: produce_batch queued {queued} of {n}")
+        p11_check(left == 0, f"11a {tag}: flush() left {left}")
+        p11_check(served == {"ok": n, "batch": n},
+                  f"11a {tag}: flush() returned 0 with DRs {served} of {n}")
+        p11_check(not bad, f"11a {tag}: DRs != produced: {bad[:3]}")
+        stored = p11_stored(cluster, topic, vals, det)
+        p11_check([sorted(b) for b in dr_batches] == stored["batches"],
+                  f"11a {tag}: DR batches != stored batches")
+        errs = p11_error_drs(p, cluster, tag, other, other_batch)
+        s2 = eos_snapshot(eng)
+    finally:
+        p.close()
+    compress = bool(s1 and s1["compress"]["launches"])
+    p11_no_cpu(s2, f"11a {tag} producer", compress)
+    return {"rate": n / secs, "secs": secs, "batches":
+            sum(map(len, stored["batches"])), "errors": errs,
+            "max_ts": stored["max_ts"],
+            "crc": s1 and s1["stats"]["launches"] - s0["stats"]["launches"],
+            "lz4": s1 and (s1["compress"]["launches"]
+                           - s0["compress"]["launches"]),
+            "fused": s1 and s1["compress"]["fused_crc"]}
+
+
+def p11_error_drs(p, cluster, tag: str, other: dict,
+                  other_batch: dict) -> dict:
+    """The error DRs of 11a, each per message with its payload: an
+    unknown partition in a mixed produce_batch (the dict's error), a
+    message.timeout.ms expiry (_MSG_TIMED_OUT) while broker 3 is down, a
+    purge(in_flight) (_PURGE_INFLIGHT) while broker 3 holds a request."""
+    out = {}
+    vals = [b"err-%s-%03d " % (tag.encode(), k) * 8 for k in range(P11_ERR)]
+    # a mixed batch: every third record to a partition the topic lacks
+    mixed = f"p11x-mixed-{tag}"
+    cluster.create_topic(mixed, 2)
+    p11_topic_known(p, mixed)
+    msgs = [{"value": v, "partition": k % 2 if k % 3 else 7 + k}
+            for k, v in enumerate(vals)]
+    queued = p.produce_batch(mixed, msgs)
+    p11_check(p.flush(60) == 0, f"11a {tag}: {mixed} did not drain")
+    errs = [(m.get("error") and m["error"].code.name, m["value"])
+            for m in msgs]
+    good = [v for k, v in enumerate(vals) if k % 3]
+    p11_check(queued == len(good)
+              and errs == [(None if k % 3 else "_UNKNOWN_PARTITION", v)
+                           for k, v in enumerate(vals)],
+              f"11a {tag}: mixed produce_batch queued {queued}, errors "
+              f"{errs[:3]}")
+    p11_check(sorted((str(e), v) for e, v, _o in other.get(mixed, []))
+              == sorted(("None", v) for v in good),
+              f"11a {tag}: the mixed batch's DRs != its good records")
+    out["mixed"] = {"queued": queued, "unknown": len(vals) - queued}
+    # message.timeout.ms expiry: the partition's leader is held down
+    exp = f"p11x-exp-{tag}"
+    cluster.create_topic(exp, 1)
+    cluster.set_partition_leader(exp, 0, P11_ERR_BROKER)
+    p.set_topic_conf(exp, {"message.timeout.ms": 500})
+    cluster.set_broker_down(P11_ERR_BROKER)
+    try:
+        p.produce_batch(exp, [{"value": v, "partition": 0} for v in vals])
+        p11_wait(p, lambda: len(other.get(exp, [])) >= len(vals),
+                 f"11a {tag}: expiry DRs")
+    finally:
+        cluster.set_broker_down(P11_ERR_BROKER, False)
+    got = other[exp]
+    p11_check([(e, v) for e, v, _o in got]
+              == [("_MSG_TIMED_OUT", v) for v in vals]
+              and all(o < 0 for _e, _v, o in got),
+              f"11a {tag}: expiry DRs {got[:2]}")
+    out["expired"] = len(got)
+    # purge(in_flight): a request the mock holds on broker 3
+    pg = f"p11x-purge-{tag}"
+    cluster.create_topic(pg, 1)
+    cluster.set_partition_leader(pg, 0, P11_ERR_BROKER)
+    p.produce(pg, value=b"warm", partition=0)
+    p11_check(p.flush(60) == 0, f"11a {tag}: {pg} did not drain")
+    with p.rk._brokers_lock:
+        held = [b for b in p.rk.brokers.values()
+                if b.nodeid == P11_ERR_BROKER]
+    cluster.pause_broker(P11_ERR_BROKER)
+    try:
+        p.produce_batch(pg, [{"value": v, "partition": 0} for v in vals])
+        p11_wait(p, lambda: any(b.waitresp for b in held),
+                 f"11a {tag}: no request in flight to broker 3")
+        t0 = time.monotonic()
+        p.purge(in_queue=True, in_flight=True)
+        left = p.flush(10)
+        purge_s = time.monotonic() - t0
+        p11_wait(p, lambda: len(other.get(pg, [])) >= len(vals) + 1,
+                 f"11a {tag}: purge DRs")
+    finally:
+        cluster.resume_broker(P11_ERR_BROKER)
+    got = other[pg][1:]
+    codes = {e for e, _v, _o in got}
+    p11_check(left == 0 and purge_s < 5.0, f"11a {tag}: flush() after "
+              f"purge left {left} in {purge_s:.3f} s")
+    p11_check(other[pg][0][0] is None and [v for _e, v, _o in got] == vals
+              and codes <= {"_PURGE_INFLIGHT", "_PURGE_QUEUE"}
+              and "_PURGE_INFLIGHT" in codes,
+              f"11a {tag}: purge DRs {sorted(codes, key=str)}")
+    out["purged"] = {c: sum(1 for e, _v, _o in got if e == c)
+                     for c in sorted(codes)}
+    n_err = {t: len(v) for t, v in other.items()}
+    p11_check(other_batch == n_err, f"11a {tag}: dr_batch_cb saw "
+              f"{other_batch}, dr_msg_cb {n_err}")
+    return out
+
+
+class P11Reader:
+    """11b's delivery book: each partition's next offset, held exact
+    through pause, seek and restart; every record's key, value, headers
+    and explicit timestamp checked against what was produced."""
+
+    def __init__(self, vals, topic: str):
+        self.vals, self.topic = vals, topic
+        # a fortieth of the records a call, so each stage of 11b starts
+        # close to its mark
+        self.chunk = max(10, min(10_000, len(vals) * len(vals[0]) // 40))
+        self.nxt = [0] * len(vals)
+        self.delivered = 0
+
+    def progress(self) -> int:
+        return sum(self.nxt)
+
+    def take(self, msgs) -> None:
+        for m in msgs:
+            p11_check(m.error is None, f"11b {self.topic}: {m.error}")
+            i, j = m.partition, self.nxt[m.partition]
+            # a stale batch (fetched before a seek) or a duplicate shows
+            # as an offset other than the partition's next
+            p11_check(m.offset == j and p11_same(m, i, j, self.vals),
+                      f"11b {self.topic}[{i}]: offset {m.offset} delivered "
+                      f"where {j} was next, or its record != produced")
+            self.nxt[i] = j + 1
+            self.delivered += 1
+
+    def read_to(self, c, target: int, timeout: float = 120.0) -> None:
+        """consume(num_messages=...) until the book reaches ``target``."""
+        deadline = time.monotonic() + timeout
+        while self.progress() < target:
+            p11_check(time.monotonic() < deadline, f"11b {self.topic}: "
+                      f"{self.progress()} of {target} records read")
+            self.take(c.consume(num_messages=self.chunk, timeout=0.5))
+
+
+def p11_fetches(cluster, since: int, broker: int) -> int:
+    """Fetch requests broker ``broker`` took since request_log[since]."""
+    from librdkafka_tpu_torch.protocol.proto import ApiKey
+    return sum(1 for b, api in cluster.request_log[since:]
+               if b == broker and api == int(ApiKey.Fetch))
+
+
+def p11_consume(kit, cluster, vals, backend: dict, tag: str, store: str,
+                max_ts) -> dict:
+    """11b: a check.crcs Consumer with client.rack reads 11a's records
+    with consume(num_messages=...) from the follower of the even
+    partitions (the odd ones from the leader), pauses and resumes half
+    the partitions, withdraws the follower midway (reading goes back to
+    the leader), seeks the quarter of the partitions furthest read back
+    by 3/16 of a partition (300 records of 1,600) with fetch tickets
+    parked, looks offsets up by stored timestamps, commits to the file
+    store at 80 % and closes; a second Consumer resumes from the files.
+    Every record after each seek point exactly once, in order, headers
+    and timestamps as produced."""
+    parts, per = len(vals), len(vals[0])
+    n = parts * per
+    topic = f"p11-{tag}"
+    TP = kit.TopicPartition
+    rewind = per * 3 // 16
+    evens = [i for i in range(parts) if i % 2 == 0]
+    odds = [i for i in range(parts) if i % 2]
+    for i in evens:
+        cluster.set_follower(topic, i, P11_FOLLOWER)
+    conf = {"bootstrap.servers": cluster.bootstrap_servers(),
+            "group.id": f"p11-{tag}", "check.crcs": True,
+            "client.rack": "rack-b", "fetch.wait.max.ms": 50,
+            # about a twelfth of the topic fetched ahead, so the leader
+            # serves the half after the follower is withdrawn
+            "queued.max.messages.kbytes": max(
+                64, n * len(vals[0][0]) // 1024 // 12),
+            "enable.auto.commit": False, "auto.offset.reset": "earliest",
+            "offset.store.method": "file", "offset.store.path": store,
+            "offset.store.sync.interval.ms": 0, **backend}
+    book = P11Reader(vals, topic)
+    out: dict = {}
+    c = kit.Consumer(conf)
+    try:
+        eos_warm(c)
+        eng = eos_engine(c)
+        p11_check(c._rk.fetch_pipeline_depth >= 2, f"11b {tag}: fetch "
+                  f"pipeline depth {c._rk.fetch_pipeline_depth}")
+        s0 = eos_snapshot(eng)
+        log0 = len(cluster.request_log)
+        t0 = time.perf_counter()
+        c.assign([TP(topic, i) for i in range(parts)])
+        book.read_to(c, n // 5)
+        c.pause([TP(topic, i) for i in odds])
+        book.read_to(c, n * 7 // 20)
+        c.resume([TP(topic, i) for i in odds])
+        book.read_to(c, n // 2)
+        # the follower withdrawn: NOT_LEADER from broker 2, back to 1
+        with c._rk._brokers_lock:
+            brokers = list(c._rk.brokers.values())
+        out["delegated"] = sum(
+            1 for i in evens
+            if c._rk.get_toppar(topic, i, create=False).fetch_broker_id
+            == P11_FOLLOWER)
+        for i in evens:
+            cluster.set_follower(topic, i, None)
+        t1 = time.perf_counter()
+        log1 = len(cluster.request_log)
+        s1 = eos_snapshot(eng)
+        d1 = book.delivered
+        book.read_to(c, n * 3 // 5)
+        # a quarter of the partitions rewound while fetched partitions
+        # wait in the verify pipeline (their tickets in flight)
+        deadline = time.monotonic() + 5
+        while (not any(b._fetch_pending for b in brokers)
+               and time.monotonic() < deadline):
+            book.take(c.consume(num_messages=max(1, book.chunk // 10),
+                                timeout=0.05))
+        out["parked"] = sum(len(b._fetch_pending) for b in brokers)
+        # the consumer drains the lowest-numbered partitions first: seek
+        # the quarter that has read the most
+        sought = sorted(range(parts), key=lambda i: -book.nxt[i])[
+            :max(1, parts // 4)]
+        p11_check(all(book.nxt[i] > 0 for i in sought),
+                  f"11b {tag}: a partition to seek had no record read: "
+                  f"{book.nxt}")
+        out["rewound"] = 0
+        for i in sought:
+            s = max(0, book.nxt[i] - rewind)
+            out["rewound"] += book.nxt[i] - s
+            book.nxt[i] = s
+            c.seek(TP(topic, i, s))
+        # offsets_for_times on stored timestamps: the earliest stored
+        # batch whose max timestamp reaches the target
+        sample = sorted({0, parts // 2, parts - 1})
+        targets = {i: P11_TS0 + i * per + (per // 2 // 4) * 4 + 2
+                   for i in sample}
+        want = {i: next(b for b, mts in max_ts[i] if mts >= targets[i])
+                for i in sample}
+        got = {r.partition: r.offset for r in c.offsets_for_times(
+            [TP(topic, i, targets[i]) for i in sample], timeout=10)}
+        p11_check(got == want, f"11b {tag}: offsets_for_times {got} != "
+                  f"the stored batches' {want}")
+        book.read_to(c, n * 4 // 5)
+
+        def delegated():
+            return [i for i in evens if c._rk.get_toppar(
+                topic, i, create=False).fetch_broker_id is not None]
+        # a partition reverts at its next fetch to the withdrawn follower
+        # (NOT_LEADER); one whose records were all fetched ahead may not
+        # have fetched since
+        deadline = time.monotonic() + 15
+        while delegated() and time.monotonic() < deadline:
+            book.take(c.consume(num_messages=max(1, book.chunk // 10),
+                                timeout=0.1))
+        # the positions the book holds (after a seek the consumer's own
+        # stored offset is still past the last record delivered)
+        c.commit(offsets=[TP(topic, i, book.nxt[i]) for i in range(parts)],
+                 asynchronous=False)
+        committed = {r.partition: r.offset for r in c.committed(
+            [TP(topic, i) for i in range(parts)])}
+        files = {}
+        for i in range(parts):
+            with open(os.path.join(store, f"{topic}-{i}.offset")) as f:
+                files[i] = int(f.read().strip())
+        p11_check(committed == files == dict(enumerate(book.nxt)),
+                  f"11b {tag}: committed offsets != the file store != "
+                  f"the positions read")
+        t2 = time.perf_counter()
+        d2 = book.delivered
+        log2 = len(cluster.request_log)
+        s2 = eos_snapshot(eng)
+        stuck = delegated()
+    finally:
+        c.close()
+    p11_check(not stuck, f"11b {tag}: partitions {stuck[:4]} still fetch "
+              "from the follower")
+    c2 = kit.Consumer(conf)
+    try:
+        eos_warm(c2)
+        eng2 = eos_engine(c2)
+        s3 = eos_snapshot(eng2)
+        t3 = time.perf_counter()
+        c2.assign([TP(topic, i) for i in range(parts)])
+        book.read_to(c2, n)
+        t4 = time.perf_counter()
+        s4 = eos_snapshot(eng2)
+        extra = c2.consume(num_messages=100, timeout=0.5)
+        p11_check(not [m for m in extra if m.error is None],
+                  f"11b {tag}: records past the end")
+    finally:
+        c2.close()
+    out.update({
+        "follower_fetches": p11_fetches(cluster, log0, P11_FOLLOWER),
+        "leader_fetches": p11_fetches(cluster, log1, P11_LEADER),
+        "follower_after": p11_fetches(cluster, log2, P11_FOLLOWER),
+        "follower_rate": d1 / (t1 - t0),
+        "leader_rate": (d2 - d1) / (t2 - t1),
+        "restart_rate": (book.delivered - d2) / (t4 - t3),
+        "delivered": book.delivered})
+    p11_check(out["follower_fetches"] > 0 and out["leader_fetches"] > 0
+              and out["delegated"] > 0 and out["follower_after"] == 0,
+              f"11b {tag}: fetches follower {out['follower_fetches']} "
+              f"(delegated {out['delegated']}), leader after the "
+              f"withdrawal {out['leader_fetches']}, follower after the "
+              f"restart {out['follower_after']}")
+    p11_check(book.delivered == n + out["rewound"],
+              f"11b {tag}: {book.delivered} delivered, not {n} + "
+              f"{out['rewound']} rewound")
+    if s0 is not None:
+        out["crc"] = [s1["stats"]["launches"] - s0["stats"]["launches"],
+                      s2["stats"]["launches"] - s1["stats"]["launches"],
+                      s4["stats"]["launches"] - s3["stats"]["launches"]]
+        p11_no_cpu(s2, f"11b {tag} consumer", False)
+        p11_no_cpu(s4, f"11b {tag} restarted consumer", False)
+    return out
+
+
+def p11_regex(kit, cluster, backend: dict, tag: str, n: int = 50) -> dict:
+    """11b's regex subscription: a group consumer subscribed to
+    ^p11r-<tag>-.* reads the matching topic, then a matching topic
+    created mid-run; a topic that does not match is never read."""
+    first, second, skip = f"p11r-{tag}-0", f"p11r-{tag}-1", f"p11q-{tag}"
+    cluster.create_topic(first, 2)
+    cluster.create_topic(skip, 1)
+    p = kit.Producer({"bootstrap.servers": cluster.bootstrap_servers(),
+                      "linger.ms": 5, **backend})
+    c = None
+    try:
+        for t in (first, skip):
+            for k in range(n):
+                p.produce(t, value=b"%s-%03d" % (t.encode(), k),
+                          partition=k % 2 if t == first else 0)
+        p11_check(p.flush(60) == 0, f"11b {tag}: regex seed did not drain")
+        c = kit.Consumer({"bootstrap.servers": cluster.bootstrap_servers(),
+                          "group.id": f"p11r-{tag}", "check.crcs": True,
+                          "auto.offset.reset": "earliest",
+                          "topic.metadata.refresh.interval.ms": 400,
+                          **backend})
+        eos_warm(c)
+        c.subscribe([f"^p11r-{tag}-.*"])
+
+        def read(k):
+            got = []
+            deadline = time.monotonic() + 30
+            while len(got) < k and time.monotonic() < deadline:
+                got += [(m.topic, m.value) for m in
+                        c.consume(num_messages=1000, timeout=0.3)
+                        if m.error is None]
+            return got
+        got1 = read(n)
+        # committed, so the rebalance onto the new topic resumes here
+        c.commit(asynchronous=False)
+        cluster.create_topic(second, 2)
+        for k in range(n):
+            p.produce(second, value=b"%s-%03d" % (second.encode(), k),
+                      partition=k % 2)
+        p11_check(p.flush(60) == 0, f"11b {tag}: regex topic did not drain")
+        got2 = read(n)
+        extra = [(m.topic, m.value)
+                 for m in c.consume(num_messages=10, timeout=0.5)
+                 if m.error is None]
+        snap = eos_snapshot(eos_engine(c))
+    finally:
+        if c is not None:
+            c.close()
+        p.close()
+    for t, got in ((first, got1), (second, got2)):
+        p11_check(sorted(got) == [(t, b"%s-%03d" % (t.encode(), k))
+                                  for k in range(n)],
+                  f"11b {tag}: regex subscription read {len(got)} of {t}'s "
+                  f"{n}: {got[:2]}")
+    p11_check(not extra, f"11b {tag}: regex subscription read {extra[:2]}")
+    p11_no_cpu(snap, f"11b {tag} regex consumer", False)
+    return {"topics": [first, second], "records": len(got1) + len(got2)}
+
+
+def p11_tickets(tickets, timeout: float = 10.0) -> dict:
+    """Wait on every ticket from a thread of its own: each must resolve
+    or fail with the engine's "closed" error, none may hang."""
+    seen = {"resolved": 0, "closed": 0, "other": []}
+    lock = threading.Lock()
+
+    def wait(t):
+        try:
+            t.result(timeout)
+            kind = "resolved"
+        except RuntimeError as e:
+            kind = "closed" if "closed" in str(e) else repr(e)
+        except Exception as e:            # recorded, checked below
+            kind = repr(e)
+        with lock:
+            if kind in ("resolved", "closed"):
+                seen[kind] += 1
+            else:
+                seen["other"].append(kind)
+    ths = [threading.Thread(target=wait, args=(t,), name=f"p11-ticket-{k}")
+           for k, t in enumerate(tickets)]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(timeout + 5)
+    seen["hung"] = sum(th.is_alive() for th in ths)
+    return seen
+
+
+def p11_engine_down(client, what: str) -> None:
+    """Kafka.close() swallows the provider's close() error, so the
+    engine's own state must show the drain: closed, its dispatch and
+    warmup threads exited."""
+    eng = eos_engine(client)
+    if eng is None:
+        return
+    warm = getattr(eng, "_warmup_thread", None)
+    p11_check(eng._closed and not eng._thread.is_alive()
+              and (warm is None or not warm.is_alive()),
+              f"11c: {what}'s engine still running after close()")
+
+
+def p11_settled(client) -> None:
+    """Wait for the client's warmup threads (the provider's, its
+    engine's) to finish, so close() is timed against the wedged broker
+    and the tickets, not against a kernel build in progress."""
+    prov = client._rk.codec_provider
+    for owner in (prov, getattr(prov, "_engine", None)):
+        th = getattr(owner, "_warmup_thread", None)
+        if th is not None:
+            th.join(120)
+            p11_check(not th.is_alive(), f"11c: {th.name} still running")
+
+
+def p11_teardown(kit, backend: dict, tag: str, parts: int = 8,
+                 per: int = 400) -> dict:
+    """11c: a GPU Producer and a check.crcs Consumer with tickets in
+    flight, then the mock stops answering broker 2 and the consumer's
+    broker-2 thread is wedged (its serve loop a sleep): close() each
+    client.  close() returns in time, no engine or warmup thread is left,
+    every ticket resolves or fails "closed", a CRC batch the wedged
+    thread submits after close() resolves exact; a fresh client
+    afterwards launches and writes exact CRCs."""
+    topic = f"p11c-{tag}"
+    cluster = kit.MockCluster(num_brokers=2, topics={topic: parts},
+                              auto_create_topics=False)
+    TP = kit.TopicPartition
+    out: dict = {}
+    stuck = None
+    try:
+        p = kit.Producer({"bootstrap.servers": cluster.bootstrap_servers(),
+                          "linger.ms": 5, "compression.codec": "lz4",
+                          "queue.buffering.max.messages": 1_000_000,
+                          **backend})
+        c = kit.Consumer({"bootstrap.servers": cluster.bootstrap_servers(),
+                          "group.id": f"p11c-{tag}", "check.crcs": True,
+                          "auto.offset.reset": "earliest", **backend})
+        try:
+            for client in (p, c):
+                eos_warm(client)
+                p11_settled(client)
+            vals = payloads(parts * per, VALUE_SIZE)
+            for k, v in enumerate(vals):
+                p.produce(topic, value=v, partition=k % parts)
+            p11_check(p.flush(120) == 0, f"11c {tag}: seed did not drain")
+            c.assign([TP(topic, i, OFFSET_BEGINNING) for i in range(parts)])
+            read = 0
+            deadline = time.monotonic() + 60
+            while read < len(vals) // 2:
+                p11_check(time.monotonic() < deadline,
+                          f"11c {tag}: read {read} of {len(vals) // 2}")
+                read += sum(1 for m in c.consume(num_messages=1000,
+                                                 timeout=0.2)
+                            if m.error is None)
+            with c._rk._brokers_lock:
+                stuck = next(b for b in c._rk.brokers.values()
+                             if b.nodeid == 2)
+            # a burst to fetch; wedge broker 2's thread while its fetch
+            # pipeline holds partitions (best effort: a serve pass in
+            # progress may still reap them); a second burst (producer
+            # tickets in flight); then the mock stops answering broker 2
+            for k, v in enumerate(vals):
+                p.produce(topic, value=v, partition=k % parts)
+            deadline = time.monotonic() + 2
+            while not stuck._fetch_pending and time.monotonic() < deadline:
+                c.consume(num_messages=50, timeout=0.01)
+            stuck._serve = lambda: time.sleep(0.05)
+            for k, v in enumerate(vals):
+                p.produce(topic, value=v, partition=k % parts)
+            cluster.pause_broker(2)
+            tickets = []
+            prov = c._rk.codec_provider
+            if hasattr(prov, "crc32c_submit"):
+                tickets = [prov.crc32c_submit([bytes(vals[k])] * 8)
+                           for k in range(4)]
+            for b in list(c._rk.brokers.values()):
+                for pend in list(b._fetch_pending):
+                    tickets += [t for t in (pend.crc_ticket,
+                                            pend.legacy_ticket) if t]
+                    tickets += [t for _c, _i, t in pend.dec_tickets]
+            out["tickets"] = len(tickets)
+        finally:
+            t0 = time.monotonic()
+            c.close()
+            out["consumer_close_s"] = time.monotonic() - t0
+            t0 = time.monotonic()
+            p.close(2.0)
+            out["producer_close_s"] = time.monotonic() - t0
+        p11_engine_down(c, f"11c {tag} consumer")
+        p11_engine_down(p, f"11c {tag} producer")
+        out["ticket_waits"] = p11_tickets(tickets)
+        # the wedged thread outlived close(): a CRC batch it submits now
+        # meets the closed engine and still resolves, exact
+        regions = [bytes(v) for v in vals[:8]]
+        late = type(stuck)._codec_submit(prov, "crc32c_submit",
+                                         prov.crc32c_many, regions)
+        p11_check([int(x) for x in late.result(10)]
+                  == native.crc32c_many(regions).tolist(),
+                  f"11c {tag}: a CRC batch submitted after close() != the "
+                  "native crc32c")
+        left = [t.name for t in threading.enumerate()
+                if "engine" in t.name or "warmup" in t.name]
+        p11_check(not left, f"11c {tag}: threads left: {left}")
+        p11_check(out["consumer_close_s"] <= P11_CLOSE_S
+                  and out["producer_close_s"] <= 2.0 + P11_CLOSE_S,
+                  f"11c {tag}: close() took {out['consumer_close_s']:.3f} s"
+                  f" (consumer), {out['producer_close_s']:.3f} s (producer)")
+        w = out["ticket_waits"]
+        p11_check(not w["hung"] and not w["other"],
+                  f"11c {tag}: ticket waiters {w}")
+        p11_check(stuck.thread.is_alive(), f"11c {tag}: the wedged broker "
+                  "thread exited before close() met it")
+    finally:
+        if stuck is not None:
+            stuck.terminate = True
+            stuck.thread.join(5)
+        cluster.resume_broker(2)
+        cluster.stop()
+    p11_check(stuck is None or not stuck.thread.is_alive(),
+              f"11c {tag}: the wedged broker thread did not exit")
+    # a fresh client: launches, exact CRCs
+    fresh = kit.MockCluster(num_brokers=1, topics={topic: 4})
+    try:
+        p = kit.Producer({"bootstrap.servers": fresh.bootstrap_servers(),
+                          "linger.ms": 5, **backend})
+        try:
+            eos_warm(p)
+            s0 = eos_snapshot(eos_engine(p))
+            for k in range(4 * 200):
+                p.produce(topic, value=b"fresh-%04d " % k * 20,
+                          partition=k % 4)
+            p11_check(p.flush(60) == 0, f"11c {tag}: fresh client did not "
+                      "drain")
+            s1 = eos_snapshot(eos_engine(p))
+        finally:
+            p.close()
+        from librdkafka_tpu_torch.protocol.msgset import iter_batches
+        infos, regions = [], []
+        for i in range(4):
+            for _base, blob in fresh.partition(topic, i).log:
+                for info, _payload, full in iter_batches(blob):
+                    infos.append(info)
+                    regions.append(bytes(full[V2_OF_Attributes:]))
+        p11_check(infos and native.crc32c_many(regions).tolist()
+                  == [x.crc for x in infos],
+                  f"11c {tag}: the fresh client's CRCs != the native crc32c")
+        if s0 is not None:
+            out["fresh_launches"] = (s1["stats"]["launches"]
+                                     - s0["stats"]["launches"])
+            p11_check(out["fresh_launches"] > 0,
+                      f"11c {tag}: the fresh client made no CRC launch")
+            p11_no_cpu(s1, f"11c {tag} fresh producer", False)
+    finally:
+        fresh.stop()
+    return out
+
+
+def phase_api(smi: str, parts: int = PARTITIONS,
+              per_part: int = P11_PER_PART, device: str = "cuda") -> dict:
+    """Phase 11: the producer's delivery path (11a) and the consumer's
+    API (11b) on two legs, then teardown under a wedged broker (11c), on
+    the card.  Returns its launches."""
+    import tempfile
+    t0 = time.perf_counter()
+    flat = payloads(parts * per_part, VALUE_SIZE)
+    vals = [flat[i * per_part:(i + 1) * per_part] for i in range(parts)]
+    kit = port_kit()
+    backend = {"compression.backend": "gpu", "gpu.device": device, **P6_GPU}
+    card = device != "cpu"
+    total = {"crc_rows": 0, "lz4_rows": 0}
+    for tag, extra in (("a", {}), ("b", {"gpu.compress.device": True})):
+        dev = bool(extra)
+        cluster = p11_cluster(kit, tag, parts)
+        try:
+            crc.launches = 0
+            lz4.launches = 0
+            d = p11_delivery(kit, cluster, vals, {**backend, **extra}, tag,
+                             det=dev)
+            a_crc, a_lz4 = crc.launches, lz4.launches
+            print(f"phase 11, leg {tag} "
+                  f"({'gpu.compress.device' if dev else 'CRC tickets'}): "
+                  f"11a {parts * per_part} records x {VALUE_SIZE} B lz4 over "
+                  f"{parts} idempotent partitions through produce_batch (a"
+                  f" quarter with headers, a quarter with timestamps), "
+                  f"dr_msg_cb + dr_batch_cb all served at flush(); "
+                  f"{d['batches']} stored batches exact and equal to the DR"
+                  f" batches; error DRs {d['errors']}")
+            print(f"  produce {d['rate']:.1f} msgs/s ({d['secs']:.3f} s "
+                  f"through flush()); producer launches crc {d['crc']}, "
+                  f"lz4 {d['lz4']} [{smi}]")
+            with tempfile.TemporaryDirectory() as store:
+                r = p11_consume(kit, cluster, vals, backend, tag, store,
+                                d["max_ts"])
+            b_crc = crc.launches - a_crc
+            rx = p11_regex(kit, cluster, backend, tag)
+            counts = {"crc_rows": crc.launches, "lz4_rows": lz4.launches}
+        finally:
+            cluster.stop()
+        if dev:
+            check(d["lz4"] > 0 and d["fused"] > 0 and d["crc"] == 0,
+                  f"11a {tag}: producer launches lz4 {d['lz4']} (fused "
+                  f"{d['fused']}), crc {d['crc']}: not the compress route")
+            check(not card or a_lz4 > 0, f"11a {tag}: no lz4_rows launch")
+        else:
+            check(d["crc"] > 0 and d["lz4"] == 0, f"11a {tag}: producer "
+                  f"launches crc {d['crc']}, lz4 {d['lz4']}")
+            check(not card or a_crc > 0, f"11a {tag}: no crc_rows launch")
+        check(min(r["crc"]) > 0, f"11b {tag}: consumer CRC launches "
+              f"(follower half, leader half, restart) {r['crc']}")
+        check(not card or b_crc > 0, f"11b {tag}: no crc_rows launch")
+        for k in total:
+            total[k] += counts[k]
+        print(f"  11b: consume {r['follower_rate']:.1f} msgs/s with the "
+              f"follower ({r['delegated']} partitions delegated, "
+              f"{r['follower_fetches']} follower fetches), "
+              f"{r['leader_rate']:.1f} from the leader "
+              f"({r['leader_fetches']} fetches), {r['restart_rate']:.1f} "
+              f"after the file-store restart; {r['delivered']} delivered "
+              f"({r['rewound']} rewound by seek with {r['parked']} fetch "
+              f"partitions parked); consumer CRC launches {r['crc']}; regex "
+              f"{rx['records']} records of {rx['topics']} [{smi}]")
+        print(f"  leg {tag} launches: crc_rows {counts['crc_rows']} (11a "
+              f"{a_crc}, 11b {b_crc}), lz4_rows {counts['lz4_rows']} (11a "
+              f"{a_lz4}) [{smi}]")
+    crc.launches = 0
+    t = p11_teardown(kit, backend, "c")
+    check(not card or crc.launches > 0, "11c: no crc_rows launch")
+    total["crc_rows"] += crc.launches
+    print(f"phase 11c: close() with {t['tickets']} tickets in flight and a "
+          f"wedged broker thread: consumer {t['consumer_close_s']:.3f} s, "
+          f"producer {t['producer_close_s']:.3f} s (its flush 2 s); "
+          f"ticket waiters {t['ticket_waits']}, a late submit exact; "
+          f"fresh client "
+          f"{t.get('fresh_launches')} CRC launches, CRCs exact; crc_rows "
+          f"{crc.launches} [{smi}]")
+    secs = time.perf_counter() - t0
+    check(secs <= P11_LIMIT_S, f"phase 11 took {secs:.3f} s, over its "
+          f"{P11_LIMIT_S} s")
+    print(f"phase 11: ok ({secs:.3f} s: 11a delivery, 11b consumer API on "
+          f"two legs, 11c teardown; {parts} x {per_part} x {VALUE_SIZE} B) "
+          f"[{smi}]")
+    return total
+
+
 def kernel_line(main: dict, timing: dict, max_err: int) -> dict:
     """The crc_rows entry at the main path's shape (its produce regions
     as packed segments)."""
@@ -3302,13 +4212,15 @@ def main() -> None:
     robust = phase_robustness()
     capi = phase_capi(client, dev["smi"])
     eos = phase_eos(dev["smi"])
+    api = phase_api(dev["smi"])
     cnt = mp["counts"]
     main_path["launches"] += (engine["launches"] + client["crc_rows"]
                               + cnt["crc_rows"] + robust["crc_rows"]
-                              + capi["crc_rows"] + eos["crc_rows"])
+                              + capi["crc_rows"] + eos["crc_rows"]
+                              + api["crc_rows"])
     comp["launches"] += (client["lz4_rows"] + cnt["lz4_rows"]
                          + robust["lz4_rows"] + capi["lz4_rows"]
-                         + eos["lz4_rows"])
+                         + eos["lz4_rows"] + api["lz4_rows"])
     line = kernel_line(main_path, timing, max(max_err, engine["max_err"]))
     lz4_line = {"name": "lz4_rows", "route": "cuda",
                 "source": "librdkafka_tpu_torch/csrc/lz4_rows.cu",

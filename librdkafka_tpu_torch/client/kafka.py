@@ -704,10 +704,13 @@ class Kafka:  # lint: ok shared-state
                 self.metadata_refresh("fast")
 
             self.timers.add(fast, _fast_refresh, once=True)
-        # instantiate broker threads for newly discovered nodes
+        # instantiate broker threads for newly discovered nodes — none
+        # once close() began: it sets terminating, then snapshots the
+        # brokers under this lock to stop them, so a broker added after
+        # that snapshot would serve on forever
         with self._brokers_lock:
             for nid, (host, port) in new_brokers.items():
-                if nid not in self.brokers:
+                if nid not in self.brokers and not self.terminating:
                     b = Broker(self, nid, host, port)
                     self.brokers[nid] = b
                     b.start()

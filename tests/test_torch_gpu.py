@@ -12,8 +12,9 @@ through the engine's compress route, the sharded steps (kernels G
 and H of parallel/mesh.py) on four shards of the visible cards, through
 the engine and the entry points, the robustness tier (the QoS flood
 scenario and the stress gate) with its device legs on the card, the
-C ABI (capi/gpu_smoke.c through libtkafka.so) on the card, and the
-exactly-once copy of chip_smoke.py phase 10 at a small size.  Marked
+C ABI (capi/gpu_smoke.c through libtkafka.so) on the card, the
+exactly-once copy of chip_smoke.py phase 10 and the delivery path and
+consumer API of its phase 11, each at a small size.  Marked
 ``gpu``; each skips on a host without CUDA.  On a card
 (tests/conftest.py imports jax, which the GPU host lacks):
 
@@ -743,3 +744,18 @@ def test_eos_copy_on_card(card, leg):
                 "cpu_jobs", "warmup_miss_jobs", "routed_cpu_jobs"))
         else:
             assert pe["stats"]["launches"] > c.engines["producer_crc0"]
+
+
+# ---------------------------------- the delivery path and consumer API --
+
+def test_delivery_and_consumer_api_on_card(card):
+    """chip_smoke.py phase 11 at 8 partitions x 400 records on the card:
+    11a (produce_batch with headers and timestamps, every DR served at
+    flush(), the error DRs) and 11b (follower fetch, pause, seek with
+    tickets parked, offsets_for_times, the file-store restart, regex
+    subscribe) on the CRC tickets and the device compress route, then
+    11c (close() under a wedged broker thread with tickets in flight).
+    Any check that fails raises or exits non-zero."""
+    import chip_smoke
+    out = chip_smoke.phase_api("card test", parts=8, per_part=400)
+    assert out["crc_rows"] > 0 and out["lz4_rows"] > 0
