@@ -190,7 +190,36 @@ time, the engines are closed with their threads gone (checked on the
 engine: Kafka.close() swallows its error), every ticket waiter returns
 or fails "closed", and a fresh client launches crc_rows with exact CRCs.
 It prints each leg's produce, follower and leader consume msgs/s and
-launches; phase 11 fails past 60 s.  Any mismatch exits non-zero.
+launches; phase 11 fails past 60 s.  Phase 12 holds the port's
+observability (obs/trace.py, obs/metrics.py, obs/collect.py and their
+span sites in the client, the broker threads and the engine) on the
+card: (a) phase 11's shape (64 partitions x 1,600 records x 1,024 B lz4,
+idempotent) through a traced, metered Producer into an in-process mock
+and back through a traced check.crcs GPU Consumer, on leg a (CRC
+tickets) and leg b (gpu.compress.device=true), governor off and warm,
+rings large enough never to wrap (checked); the dump has the Perfetto
+shape test_0126 asserts and its stages; device_launch spans == the two
+engines' CRC launches == crc_rows launches, compress_launch spans ==
+compress launches == lz4_rows launches, each launch on card 0 unsharded
+and read back after it ends on its lane, produce_tx == ack == the
+mock's ProduceRequests == stored batches, crc_verify == the consumer's
+verify tickets, engine.launches == the engines' launches in the
+registry and in the stats blob's obs section, no CPU route, the wire
+exact; after close() no ring and no instrument is left.  It prints each
+leg's stage table (scripts/traceview.py, loaded by path) and the produce
+rate with tracing off and on.  (b) The performance example's produce
+loop (examples/performance.py:57-118) in this process against the
+standalone mock, 102,400 records, four legs interleaved three times:
+--backend cpu, the governed GPU default, gpu.warmup=false and
+gpu.governor=false, tracing on; it prints each leg's median msgs/s, its
+ratio to cpu, the engine's launches and CPU routes, the stage totals and
+the application thread's longest gaps between enqueue instants with the
+spans open meanwhile; every record delivered and each GPU leg launching.
+(c) A request timeout forced on a traced GPU Producer after a lone
+record and one round: the flight dump holds the fan-in wait, the round's
+launch and readback and the timeout, dumps stop at FLIGHT_MAX_DUMPS, and
+obs.collect merges it with a Consumer's trace_dump.  Phase 12 fails past
+60 s.  Any mismatch exits non-zero.
 
 The last two lines of standard output are a ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -4181,6 +4210,652 @@ def phase_api(smi: str, parts: int = PARTITIONS,
     return total
 
 
+# --------------------------------------------------------------- phase 12 --
+
+P12_PER_PART = 1600
+P12_LIMIT_S = 60
+#: events a thread's ring holds: a power of two that no thread of a 12a
+#: leg fills (checked: every ring's write index stays below it)
+P12_RING = 1 << 17
+P12_REPEATS = 3
+#: 12b stamps an ``enqueue`` instant on the application thread every this
+#: many produce() calls: the fast lane's records enter no Python frame,
+#: so the client's own instant marks only a partition's first record
+P12_STAMP = 64
+#: 12a's legs: (tag, the leg's extra gpu.* keys)
+P12_TRACED_LEGS = (("a", {}), ("b", {"gpu.compress.device": True}))
+#: test_0126's stages a traced produce -> consume round spans.  12a's
+#: quorum of 1 records no fanin_wait (the fan-in waits only below the
+#: quorum, and a group still below it after the window is served on the
+#: CPU); 12c records one at test_0126's quorum of 2
+P12_REQUIRED = ("enqueue", "batch_assembly", "compress", "crc_ticket",
+                "fanin_wait", "device_launch", "readback", "produce_tx",
+                "ack", "fetch_rx", "crc_verify", "decompress", "deliver")
+#: 12b's legs: (tag, compression.backend, the leg's gpu.* keys)
+P12_LEGS = (("cpu", "cpu", {}), ("governed", "gpu", {}),
+            ("gpu.warmup=false", "gpu", {"gpu.warmup": False}),
+            ("gpu.governor=false", "gpu", {"gpu.governor": False}))
+
+
+def p12_traceview():
+    """scripts/traceview.py, loaded by path (it belongs to neither
+    package and imports only json, os and sys)."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "traceview.py")
+    spec = importlib.util.spec_from_file_location("p12_traceview", path)
+    tv = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tv)
+    return tv
+
+
+def p12_ns(us: float) -> int:
+    """A dump's microseconds back to the tracer's integer nanoseconds."""
+    return round(us * 1e3)
+
+
+def p12_window(events: list, t0_ns: int, t1_ns: int) -> list:
+    """The thread metadata and the events that start in [t0, t1]."""
+    return [e for e in events if e["ph"] == "M"
+            or t0_ns <= p12_ns(e["ts"]) <= t1_ns]
+
+
+def p12_count(events: list, name: str) -> int:
+    return sum(1 for e in events if e["ph"] != "M" and e["name"] == name)
+
+
+def p12_threads(events: list, labels: dict) -> dict:
+    """tid -> the thread's label (``labels``) or its name."""
+    return {e["tid"]: labels.get(e["tid"], e["args"]["name"])
+            for e in events if e["ph"] == "M" and e["name"] == "thread_name"}
+
+
+def p12_stage_table(tv, events: list, wall_s: float, labels: dict) -> str:
+    """traceview's per-span table of ``events``: count, total ms, share of
+    ``wall_s``, p50 and p99 us, and the threads that recorded it."""
+    names = p12_threads(events, labels)
+    threads: dict = {}
+    for e in events:
+        if e["ph"] == "X":
+            threads.setdefault(e["name"], set()).add(
+                names.get(e["tid"], str(e["tid"])))
+    rows = [f"    {'span':<16}{'count':>7}{'total ms':>11}{'share':>8}"
+            f"{'p50 us':>10}{'p99 us':>10}  thread"]
+    for s in tv.summarize(events)["stages"]:
+        rows.append(f"    {s['name']:<16}{s['cnt']:>7}"
+                    f"{s['total_us'] / 1e3:>11.3f}"
+                    f"{s['total_us'] / 1e6 / wall_s:>8.3f}"
+                    f"{s['p50_us']:>10.1f}{s['p99_us']:>10.1f}  "
+                    f"{'+'.join(sorted(threads[s['name']]))}")
+    return "\n".join(rows)
+
+
+def p12_ordered(events: list, launch: str, reads: str, what: str,
+                kind: str | None = None) -> int:
+    """On each lane (an engine's dispatch thread and its device) the k-th
+    ``reads`` span starts no earlier than the k-th ``launch`` span ends,
+    and the two counts are equal.  Returns the lanes seen."""
+    lanes: dict = {}
+    for e in events:
+        if e["ph"] != "X" or e["name"] not in (launch, reads):
+            continue
+        a = e.get("args") or {}
+        if e["name"] == reads and kind is not None and a.get("kind") != kind:
+            continue
+        lanes.setdefault((e["tid"], a.get("device")), ([], []))[
+            e["name"] == reads].append(e)
+    for key, (ls, rs) in lanes.items():
+        check(len(ls) == len(rs), f"{what}: lane {key}: {len(ls)} {launch} "
+              f"spans, {len(rs)} {reads}")
+        for k, (a, b) in enumerate(zip(ls, rs)):
+            end = p12_ns(a["ts"]) + p12_ns(a["dur"])
+            check(p12_ns(b["ts"]) >= end, f"{what}: lane {key}: {reads} "
+                  f"{k} starts {end - p12_ns(b['ts'])} ns before {launch} "
+                  f"{k} ends")
+    return len(lanes)
+
+
+def p12_rings_unwrapped(what: str) -> int:
+    """Every thread's ring still holds all it recorded: its write index
+    below its capacity.  Returns the largest index."""
+    from librdkafka_tpu_torch.obs import trace
+    with trace._lock:
+        rings = list(trace._rings)
+    top = max((r._pos for r in rings), default=0)
+    for r in rings:
+        check(r._pos < r.cap, f"{what}: the ring of {r.thread_name} wrapped "
+              f"({r._pos} events, capacity {r.cap})")
+    return top
+
+
+def p12_conf(bootstrap: str, device: str, parts: int, extra: dict) -> dict:
+    """A phase 6 GPU Producer's conf (leg keys ``extra``) on ``bootstrap``
+    instead of its own mock."""
+    conf = p6_conf("gpu", device, parts, extra)
+    for key in ("test.mock.num.brokers", "test.mock.default.partitions"):
+        conf.pop(key)
+    conf["bootstrap.servers"] = bootstrap
+    return conf
+
+
+def p12_released(what: str) -> None:
+    from librdkafka_tpu_torch.obs import metrics, trace
+    check(not trace.enabled and trace.active_ring_count() == 0,
+          f"{what}: tracing still on ({trace.active_ring_count()} rings)")
+    check(not metrics.enabled and metrics.registered_count() == 0,
+          f"{what}: metrics still registered ({metrics.registered_count()})")
+
+
+def p12_traced_leg(tv, cluster, tag: str, extra: dict, keys, vals,
+                   device: str, smi: str) -> dict:
+    """12a, one leg: a traced and metered idempotent Producer and a
+    traced check.crcs Consumer on the GPU backend, warm; the round's
+    spans held against the engines' counters, the kernels' counters, the
+    metrics registry, the mock's ProduceRequests and the wire."""
+    import tempfile
+
+    from librdkafka_tpu_torch import Consumer, Producer
+    from librdkafka_tpu_torch.obs import metrics, trace
+    card = device != "cpu"
+    dev = "gpu.compress.device" in extra
+    cextra = {k: v for k, v in extra.items() if k != "gpu.compress.device"}
+    parts = len(keys)
+    topic = f"p12-{tag}"
+    ring = {"trace.enable": True, "trace.ring.events": P12_RING}
+    metrics.enable()
+    p = c = None
+    try:
+        p = Producer(p12_conf(cluster.bootstrap_servers(), device, parts,
+                              {**extra, **ring}))
+        c = Consumer({"bootstrap.servers": cluster.bootstrap_servers(),
+                      "group.id": f"p12-{tag}",
+                      "auto.offset.reset": "earliest", "check.crcs": True,
+                      "compression.backend": "gpu", "gpu.device": device,
+                      **P6_GPU, **cextra, **ring})
+        pprov, cprov = p._rk.codec_provider, c._rk.codec_provider
+        check(pprov.wait_warm(300) and cprov.wait_warm(300),
+              f"12a {tag}: a route did not warm")
+        peng, ceng = pprov._engine, cprov._engine
+        check(peng is not None and ceng is not None,
+              f"12a {tag}: no engine")
+        engines = (peng, ceng)
+        s0 = [(dict(e.stats), dict(e.compress_stats)) for e in engines]
+        m0 = metrics.counter("engine.launches").value
+        log0 = len(cluster.request_log)
+        crc.launches = 0
+        lz4.launches = 0
+        t_p0 = trace.now()
+        rate = p6_produce(p, topic, keys, vals)
+        t_p1 = trace.now()
+        produces = sum(1 for _b, api in cluster.request_log[log0:]
+                       if api == 0)
+        crate = p6_consume(c, topic, keys, vals)
+        t_c1 = trace.now()
+        counts = {"crc_rows": crc.launches, "lz4_rows": lz4.launches}
+        d = [{k: e.stats[k] - st[k] for k in ("launches", "jobs")}
+             | {"compress": e.compress_stats["launches"] - cs["launches"]}
+             for e, (st, cs) in zip(engines, s0)]
+        m1 = metrics.counter("engine.launches").value
+        blob = json.loads(p._rk.stats.emit_json())
+        engine_total = sum(e.stats["launches"] + e.compress_stats["launches"]
+                           for e in engines)
+        top = p12_rings_unwrapped(f"12a {tag}")
+        path = os.path.join(tempfile.gettempdir(), f"p12-{tag}.json")
+        n_dump = c.trace_dump(path)
+        with open(path) as f:
+            data = json.load(f)
+        os.unlink(path)
+        labels = {threading.get_ident(): "application",
+                  peng._thread.ident: "producer engine",
+                  ceng._thread.ident: "consumer engine"}
+        no_cpu_route(peng, f"12a {tag} producer")
+        no_cpu_route(ceng, f"12a {tag} consumer")
+        if dev:
+            no_cpu_compress(peng, f"12a {tag} producer")
+    finally:
+        if c is not None:
+            c.close()
+        if p is not None:
+            p.close()
+        metrics.disable()
+    p12_released(f"12a {tag} after close()")
+    evs = data["traceEvents"]
+    check(isinstance(evs, list) and n_dump > 0, f"12a {tag}: empty dump")
+    for e in evs:
+        check({"name", "ph", "pid", "tid"} <= set(e)
+              and (e["ph"] != "X" or {"ts", "dur"} <= set(e)),
+              f"12a {tag}: an event out of the Perfetto shape: {e}")
+    ts = [e["ts"] for e in evs if "ts" in e]
+    check(ts == sorted(ts), f"12a {tag}: timestamps not sorted")
+    check(any(e["ph"] == "M" and e["name"] == "thread_name" for e in evs),
+          f"12a {tag}: no thread_name metadata")
+    leg = p12_window(evs, t_p0, t_c1)
+    names = {e["name"] for e in leg if e["ph"] != "M"}
+    need = ({"compress_launch", "fused_crc"} if dev
+            else set(P12_REQUIRED) - {"fanin_wait"})
+    check(need <= names, f"12a {tag}: spans missing: {need - names}")
+    launches = [e for e in leg if e["name"] == "device_launch"]
+    comp = p12_count(leg, "compress_launch")
+    crc_engine = d[0]["launches"] + d[1]["launches"]
+    check(len(launches) == crc_engine == (counts["crc_rows"] if card
+                                          else len(launches)),
+          f"12a {tag}: device_launch spans {len(launches)}, engine CRC "
+          f"launches {crc_engine}, crc_rows {counts['crc_rows']}")
+    check(comp == d[0]["compress"] + d[1]["compress"]
+          == (counts["lz4_rows"] if card else comp),
+          f"12a {tag}: compress_launch spans {comp}, compress launches "
+          f"{d[0]['compress']}, lz4_rows {counts['lz4_rows']}")
+    check(len(launches) > 0 and (comp > 0) == dev,
+          f"12a {tag}: {len(launches)} CRC and {comp} compress launches")
+    one_card = card and torch.cuda.device_count() == 1
+    for e in launches:
+        a = e["args"]
+        check(a["route"] == "device" and a["sharded"] is False
+              and (a["device"] == 0 if one_card else a["device"] >= 0),
+              f"12a {tag}: device_launch args {a}")
+    tx, ack = p12_count(leg, "produce_tx"), p12_count(leg, "ack")
+    check(tx == ack == produces > 0, f"12a {tag}: produce_tx {tx}, ack "
+          f"{ack}, ProduceRequests logged {produces}")
+    verify = p12_count(leg, "crc_verify")
+    check(verify == d[1]["jobs"], f"12a {tag}: crc_verify spans {verify}, "
+          f"consumer verify tickets {d[1]['jobs']}")
+    lanes = p12_ordered(leg, "device_launch", "readback", f"12a {tag}",
+                        kind="crc")
+    if dev:
+        lanes += p12_ordered(leg, "compress_launch", "fused_crc",
+                             f"12a {tag}")
+    check(m1 - m0 == sum(x["launches"] + x["compress"] for x in d),
+          f"12a {tag}: engine.launches moved {m1 - m0}, engines "
+          f"{[(x['launches'], x['compress']) for x in d]}")
+    obs = blob["obs"]["counters"].get("engine.launches")
+    check(obs == m1 == engine_total, f"12a {tag}: stats obs.counters "
+          f"engine.launches {obs}, registry {m1}, engines {engine_total}")
+    nbatch = p6_check_stored(cluster, topic, keys, vals, dev)
+    check(nbatch == tx, f"12a {tag}: {nbatch} stored batches, {tx} "
+          "produce_tx spans")
+    prod_s = (t_p1 - t_p0) / 1e9
+    cons_s = (t_c1 - t_p1) / 1e9
+    print(f"phase 12a, leg {tag} "
+          f"({'gpu.compress.device' if dev else 'CRC tickets'}): "
+          f"{parts * len(vals[0])} records x {VALUE_SIZE} B lz4 over {parts} "
+          f"idempotent partitions, trace.ring.events {P12_RING} (largest "
+          f"ring index {top}), {nbatch} batches exact, every record read "
+          f"back by a traced check.crcs consumer; dump {n_dump} events, "
+          f"Perfetto shape")
+    print(f"  spans == counters: device_launch {len(launches)} == engine "
+          f"CRC launches {crc_engine} (producer {d[0]['launches']}, "
+          f"consumer {d[1]['launches']}) == crc_rows {counts['crc_rows']}; "
+          f"compress_launch {comp} == compress launches "
+          f"{d[0]['compress']} == lz4_rows {counts['lz4_rows']}; "
+          f"produce_tx {tx} == ack {ack} == ProduceRequests {produces}; "
+          f"crc_verify {verify} == verify tickets {d[1]['jobs']}; "
+          f"engine.launches +{m1 - m0} (stats obs {obs}); readbacks after "
+          f"their launches on {lanes} lanes [{smi}]")
+    print(f"  produce window ({prod_s:.3f} s, {rate:.1f} msgs/s; share = "
+          f"of it):")
+    print(p12_stage_table(tv, p12_window(evs, t_p0, t_p1), prod_s, labels))
+    print(f"  consume window ({cons_s:.3f} s, {crate:.1f} msgs/s; share = "
+          f"of it):")
+    print(p12_stage_table(tv, p12_window(evs, t_p1, t_c1), cons_s, labels))
+    return {"counts": counts}
+
+
+def p12_rate_split(cluster, tag: str, extra: dict, keys, vals,
+                   device: str) -> dict:
+    """12a's produce rate with tracing off and on: one warm Producer of
+    the leg (no trace.enable), the tracer switched on around the "on"
+    runs (as the conf key does), off / on / on / off / off / on."""
+    from librdkafka_tpu_torch import Producer
+    from librdkafka_tpu_torch.obs import trace
+    rates: dict = {"off": [], "on": []}
+    p = Producer(p12_conf(cluster.bootstrap_servers(), device, len(keys),
+                          extra))
+    try:
+        check(p._rk.codec_provider.wait_warm(300),
+              f"12a {tag}: rate producer not warm")
+        for r, mode in enumerate(("off", "on", "on", "off", "off", "on")):
+            if mode == "on":
+                trace.enable(ring=P12_RING)
+            try:
+                rates[mode].append(p6_produce(p, f"p12-{tag}-rate-{r}",
+                                              keys, vals))
+            finally:
+                if mode == "on":
+                    trace.disable()
+    finally:
+        p.close()
+    return rates
+
+
+def p12_perf_run(bootstrap: str, tag: str, backend: str, extra: dict,
+                 device: str, count: int, parts: int, topic: str) -> dict:
+    """12b, one run: examples/performance.py produce_mode's conf and loop
+    (:57-118: linger 50 ms, batch.num.messages 10,000, lz4, DR callback,
+    the rate window from after the client's construction to after
+    flush()) with tracing on; the application thread stamps an
+    ``enqueue`` instant every P12_STAMP produce() calls, and a watcher
+    notes when the provider's warm-up thread ends."""
+    from librdkafka_tpu_torch import Producer
+    from librdkafka_tpu_torch.client.errors import Err, KafkaException
+    from librdkafka_tpu_torch.obs import trace
+    delivered, errors, stats = [0], [0], []
+
+    def on_dr(err, msg):
+        if err is None:
+            delivered[0] += 1
+        else:
+            errors[0] += 1
+
+    conf = {"bootstrap.servers": bootstrap, "linger.ms": 50,
+            "batch.num.messages": 10000, "compression.codec": "lz4",
+            "compression.backend": backend, "statistics.interval.ms": 3000,
+            "stats_cb": lambda js: stats.append(json.loads(js)),
+            "dr_msg_cb": on_dr,
+            "trace.enable": True, "trace.ring.events": P12_RING}
+    if backend == "gpu":
+        conf.update({"gpu.device": device, **extra})
+    p = Producer(conf)
+    try:
+        warm = getattr(p._rk.codec_provider, "_warmup_thread", None)
+        ended: list = []
+        if warm is not None:
+            def watch():
+                warm.join()
+                ended.append(trace.now())
+            threading.Thread(target=watch, daemon=True,
+                             name="p12-warmup-watch").start()
+        payload = bytes(bytearray(i & 0xFF for i in range(VALUE_SIZE)))
+        produce, instant = p.produce, trace.instant
+        t0 = time.monotonic()
+        t0_ns = trace.now()
+        for i in range(count):
+            if i % P12_STAMP == 0:
+                instant("app", "enqueue", {"i": i})
+            while True:
+                try:
+                    produce(topic, value=payload, partition=i % parts)
+                    break
+                except KafkaException as e:
+                    if e.error.code != Err._QUEUE_FULL:
+                        raise
+                    p.poll(0.01)
+            if i % 10000 == 0:
+                p.poll(0)
+        rem = p.flush(300.0)
+        dt = time.monotonic() - t0
+        t1_ns = trace.now()
+        eng = json.loads(p._rk.stats.emit_json()).get("codec_engine")
+        events = p12_window(trace.collect_events(), t0_ns, t1_ns)
+        check(rem == 0 and errors[0] == 0 and delivered[0] == count,
+              f"12b {tag} {topic}: {delivered[0]} delivered, {errors[0]} "
+              f"failed, {rem} stuck of {count}")
+        warm_end = (ended[0] if ended else None) if warm is not None else 0
+        return {"rate": delivered[0] / dt, "eng": eng, "events": events,
+                "t0": t0_ns, "app": threading.get_ident(),
+                "warm_end": warm_end}
+    finally:
+        p.close()
+
+
+def p12_gaps(run: dict, k: int = 5) -> list:
+    """The ``k`` longest gaps between consecutive ``enqueue`` instants of
+    the application thread: (gap us, start ms into the window, the spans
+    open on other threads during it, warm-up thread alive)."""
+    evs = run["events"]
+    names = p12_threads(evs, {})
+    stamps = sorted(p12_ns(e["ts"]) for e in evs if e["ph"] == "i"
+                    and e["name"] == "enqueue" and e["tid"] == run["app"])
+    gaps = sorted(((b - a, a, b) for a, b in zip(stamps, stamps[1:])),
+                  reverse=True)[:k]
+    out = []
+    for gap, a, b in gaps:
+        spans = {}
+        for e in evs:
+            if e["ph"] != "X" or e["tid"] == run["app"]:
+                continue
+            s = p12_ns(e["ts"])
+            over = min(b, s + p12_ns(e["dur"])) - max(a, s)
+            if over > 0:
+                key = f"{e['name']}@{names.get(e['tid'], e['tid'])}"
+                spans[key] = spans.get(key, 0) + over
+        top = sorted(spans.items(), key=lambda kv: -kv[1])[:4]
+        alive = run["warm_end"] is None or run["warm_end"] > a
+        out.append((gap / 1e3, (a - run["t0"]) / 1e6,
+                    [(n, o / 1e3) for n, o in top], alive))
+    return out
+
+
+def p12_split(tv, device: str, parts: int, count: int, smi: str) -> dict:
+    """12b: the governed GPU producer split, against the standalone mock
+    in its own process; four legs interleaved, three repeats each."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "librdkafka_tpu_torch.mock.standalone",
+         "--partitions", str(parts)],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    runs: dict = {tag: [] for tag, _, _ in P12_LEGS}
+    crc.launches = 0
+    lz4.launches = 0
+    try:
+        ready, _, _ = select.select([proc.stdout], [], [], 60)
+        bootstrap = proc.stdout.readline().strip() if ready else ""
+        check(bool(bootstrap), "12b: the standalone mock did not start")
+        legs = list(enumerate(P12_LEGS))
+        for r in range(P12_REPEATS):
+            # interleaved: forward on even repeats, backward on odd ones
+            for i, (tag, backend, extra) in (legs if r % 2 == 0
+                                             else legs[::-1]):
+                runs[tag].append(p12_perf_run(
+                    bootstrap, tag, backend, extra, device, count, parts,
+                    f"p12b-{i}-{r}"))
+    finally:
+        proc.kill()
+        proc.wait(30)
+    counts = {"crc_rows": crc.launches, "lz4_rows": lz4.launches}
+    cpu = statistics.median(x["rate"] for x in runs["cpu"])
+    print(f"phase 12b: the performance example's produce loop (-P -z lz4 "
+          f"-s {VALUE_SIZE} -c {count}, {parts} partitions, linger 50 ms, "
+          f"batch.num.messages 10,000) in this process against the "
+          f"standalone mock (its own process), tracing on; four legs "
+          f"interleaved, {P12_REPEATS} repeats each; every record "
+          f"delivered [{smi}]")
+    for tag, backend, extra in P12_LEGS:
+        rs = runs[tag]
+        rates = [x["rate"] for x in rs]
+        med = statistics.median(rates)
+        print(f"  {tag}: {p6_rates(rates)}; {med / cpu:.3f} x cpu")
+        if backend == "gpu":
+            keys = ("launches", "routed_cpu_jobs", "warmup_miss_jobs",
+                    "explore_routes", "jobs")
+            eng = [{k: x["eng"][k] for k in keys} for x in rs]
+            check(all(e["launches"] > 0 for e in eng),
+                  f"12b {tag}: a run made no CRC launch: {eng}")
+            print(f"    engine per run: {eng}")
+        totals: dict = {}
+        for x in rs:
+            for s in tv.summarize(x["events"])["stages"]:
+                totals[s["name"]] = totals.get(s["name"], 0.0) + s["total_us"]
+        top = sorted(totals.items(), key=lambda kv: -kv[1])[:10]
+        print("    stage totals (ms, 3 runs): " + ", ".join(
+            f"{n} {t / 1e3:.1f}" for n, t in top))
+        gaps = sorted(((g, k) for k, x in enumerate(rs) for g in p12_gaps(x)),
+                      key=lambda gk: -gk[0][0])[:5]
+        for (gap, at, spans, alive), k in gaps:
+            print(f"    gap {gap:.1f} us at {at:.3f} ms (run {k}); warm-up "
+                  f"thread {'alive' if alive else 'ended'}; open: "
+                  + (", ".join(f"{n} {o:.1f} us" for n, o in spans)
+                     or "nothing"))
+        warm = [x["warm_end"] for x in rs]
+        if backend == "gpu" and any(w != 0 for w in warm):
+            print("    warm-up thread ended "
+                  + ", ".join("still running" if w is None else
+                              f"{(w - x['t0']) / 1e6:.3f} ms into the window"
+                              for w, x in zip(warm, rs)))
+    print(f"  12b launches: crc_rows {counts['crc_rows']}, lz4_rows "
+          f"{counts['lz4_rows']} [{smi}]")
+    return counts
+
+
+def p12_flight(device: str, smi: str) -> dict:
+    """12c: the flight recorder on the card.  A traced leg-a Producer at
+    test_0126's launch quorum of 2 sends one record alone (its lone
+    ticket waits in the fan-in window, then the CPU serves it) and one
+    round through the engine; a request timeout is forced as test_0126
+    forces it; the dump holds the fan-in wait, the round's launch and
+    readback and the timeout, dumps stop at FLIGHT_MAX_DUMPS, and
+    obs.collect merges the dump with a traced Consumer's trace_dump."""
+    import tempfile
+
+    from librdkafka_tpu_torch import Consumer, Producer
+    from librdkafka_tpu_torch.client.broker import Broker, Request
+    from librdkafka_tpu_torch.obs import collect, trace
+    from librdkafka_tpu_torch.protocol.proto import ApiKey
+    parts, per = PARTITIONS, 64
+    ring = {"trace.enable": True, "trace.ring.events": P12_RING}
+    vals = [[b"flight-%02d-%04d " % (i, j) * 20 for j in range(per)]
+            for i in range(parts)]
+    keys = [b"f%02d" % i for i in range(parts)]
+    old_dir = trace.flight_dir
+    crc.launches = 0
+    with tempfile.TemporaryDirectory() as d:
+        trace.flight_dir = d
+        p = c = None
+        try:
+            p = Producer({**p6_conf("gpu", device, parts, ring),
+                          "gpu.launch.min.batches": 2,
+                          "socket.max.fails": 0})
+            check(p._rk.codec_provider.wait_warm(300), "12c: not warm")
+            check(trace._flight_count == 0, "12c: flight dumps already made")
+            eng = p._rk.codec_provider._engine
+            p.produce("p12c-solo", value=b"solo", partition=0)
+            check(p.flush(60) == 0, "12c: the lone record stuck")
+            l0 = eng.stats["launches"]
+            p6_produce(p, "p12c", keys, vals)
+            check(eng.stats["launches"] > l0, "12c: no launch in the round")
+            b = Broker(p._rk, 999, "127.0.0.1", 1)      # never started
+            try:
+                b.waitresp[7] = Request(ApiKey.Metadata, {}, corrid=7,
+                                        abs_timeout=time.monotonic() - 1.0)
+                b._scan_timeouts(time.monotonic())
+                check(b.c_req_timeouts == 1, "12c: no request timeout")
+            finally:
+                b._wakeup_r.close()
+                b._wakeup_w.close()
+            path = trace.last_flight_path
+            check(path is not None and os.path.dirname(path) == d
+                  and "request_timeout" in os.path.basename(path),
+                  f"12c: flight dump {path}")
+            more = [trace.flight_record(f"bound-{i}")
+                    for i in range(trace.FLIGHT_MAX_DUMPS)]
+            dumps = sorted(os.listdir(d))
+            check(sum(x is not None for x in more)
+                  == trace.FLIGHT_MAX_DUMPS - 1 and more[-1] is None
+                  and len(dumps) == trace.FLIGHT_MAX_DUMPS,
+                  f"12c: {len(dumps)} dumps for FLIGHT_MAX_DUMPS "
+                  f"{trace.FLIGHT_MAX_DUMPS}")
+            with open(path) as f:
+                flight = json.load(f)["traceEvents"]
+            c = Consumer({"bootstrap.servers":
+                          p._rk.mock_cluster.bootstrap_servers(),
+                          "group.id": "p12c", "auto.offset.reset": "earliest",
+                          "check.crcs": True, "compression.backend": "gpu",
+                          "gpu.device": device, **P6_GPU, **ring})
+            check(c._rk.codec_provider.wait_warm(300), "12c: consumer cold")
+            p6_consume(c, "p12c", keys, vals)
+            cpath = os.path.join(d, "consumer.json")
+            c.trace_dump(cpath)
+            with open(cpath) as f:
+                cons = json.load(f)["traceEvents"]
+            merged = collect.merge([
+                collect.ProcessDump("producer-flight", 1, flight),
+                collect.ProcessDump("consumer", 2, cons)])
+            mpath = os.path.join(d, "merged.json")
+            n = collect.write(mpath, merged)
+            with open(mpath) as f:
+                data = json.load(f)
+        finally:
+            trace.flight_dir = old_dir
+            if c is not None:
+                c.close()
+            if p is not None:
+                p.close()
+    p12_released("12c after close()")
+    for e in flight:
+        check({"name", "ph", "pid", "tid"} <= set(e)
+              and (e["ph"] != "X" or {"ts", "dur"} <= set(e)),
+              f"12c: a flight event out of the Perfetto shape: {e}")
+    rt = [e for e in flight if e["name"] == "request_timeout"]
+    check(len(rt) == 1, f"12c: {len(rt)} request_timeout instants")
+    before = {e["name"] for e in flight
+              if e["ph"] == "X" and e["ts"] < rt[0]["ts"]}
+    check({"fanin_wait", "device_launch", "readback", "produce_tx",
+           "ack"} <= before,
+          f"12c: the dump lacks the round's spans: {sorted(before)}")
+    evs = data["traceEvents"]
+    labels = {e["args"]["name"] for e in evs
+              if e["ph"] == "M" and e["name"] == "process_name"}
+    body = [e["ts"] for e in evs if e["ph"] != "M"]
+    check(data["displayTimeUnit"] == "ms" and labels ==
+          {"producer-flight", "consumer"} and body == sorted(body)
+          and n == len(body) > len(flight) - len(
+              [e for e in flight if e["ph"] == "M"]),
+          f"12c: merged timeline {n} events, labels {labels}")
+    print(f"phase 12c: flight recorder on the card: a request timeout "
+          f"after a lone record and one round ({parts} x {per} records) "
+          f"dumped {len(flight)} events holding the lone ticket's "
+          f"fanin_wait, the round's device_launch, readback, produce_tx "
+          f"and ack, and the request_timeout instant; "
+          f"dumps stopped at FLIGHT_MAX_DUMPS = {trace.FLIGHT_MAX_DUMPS}; "
+          f"obs.collect merged it with the consumer's trace_dump into "
+          f"{n} events on one timeline; crc_rows {crc.launches} [{smi}]")
+    return {"crc_rows": crc.launches, "lz4_rows": 0}
+
+
+def phase_obs(smi: str, parts: int = PARTITIONS,
+              per_part: int = P12_PER_PART, device: str = "cuda") -> dict:
+    """Phase 12: the port's observability on the card.  12a a traced
+    round at full size on two legs, 12b the governed GPU producer split,
+    12c the flight recorder.  Returns the kernels' launches."""
+    from librdkafka_tpu_torch.mock.cluster import MockCluster
+    t0 = time.perf_counter()
+    p12_released("phase 12 start")
+    tv = p12_traceview()
+    flat = payloads(parts * per_part, VALUE_SIZE)
+    vals = [flat[i * per_part:(i + 1) * per_part] for i in range(parts)]
+    keys = [b"p%02d" % i for i in range(parts)]
+    total = {"crc_rows": 0, "lz4_rows": 0}
+    for tag, extra in P12_TRACED_LEGS:
+        cluster = MockCluster(num_brokers=1, default_partitions=parts)
+        try:
+            leg = p12_traced_leg(tv, cluster, tag, extra, keys, vals,
+                                 device, smi)
+            crc.launches = 0
+            lz4.launches = 0
+            rates = p12_rate_split(cluster, tag, extra, keys, vals, device)
+            counts = {"crc_rows": crc.launches, "lz4_rows": lz4.launches}
+        finally:
+            cluster.stop()
+        for k in total:
+            total[k] += leg["counts"][k] + counts[k]
+        print(f"  produce with tracing off: {p6_rates(rates['off'])}; on: "
+              f"{p6_rates(rates['on'])} (off, on, on, off, off, on; not "
+              f"gated); launches crc_rows {counts['crc_rows']}, lz4_rows "
+              f"{counts['lz4_rows']} [{smi}]")
+    split = p12_split(tv, device, parts, parts * per_part, smi)
+    flight = p12_flight(device, smi)
+    for k in total:
+        total[k] += split[k] + flight[k]
+    p12_released("phase 12 end")
+    secs = time.perf_counter() - t0
+    check(secs <= P12_LIMIT_S, f"phase 12 took {secs:.3f} s, over its "
+          f"{P12_LIMIT_S} s")
+    print(f"phase 12: ok ({secs:.3f} s: 12a traced rounds on two legs, 12b "
+          f"the governed producer split, 12c the flight recorder; {parts} x "
+          f"{per_part} x {VALUE_SIZE} B; launches crc_rows "
+          f"{total['crc_rows']}, lz4_rows {total['lz4_rows']}) [{smi}]")
+    return total
+
+
 def kernel_line(main: dict, timing: dict, max_err: int) -> dict:
     """The crc_rows entry at the main path's shape (its produce regions
     as packed segments)."""
@@ -4213,14 +4888,16 @@ def main() -> None:
     capi = phase_capi(client, dev["smi"])
     eos = phase_eos(dev["smi"])
     api = phase_api(dev["smi"])
+    obs = phase_obs(dev["smi"])
     cnt = mp["counts"]
     main_path["launches"] += (engine["launches"] + client["crc_rows"]
                               + cnt["crc_rows"] + robust["crc_rows"]
                               + capi["crc_rows"] + eos["crc_rows"]
-                              + api["crc_rows"])
+                              + api["crc_rows"] + obs["crc_rows"])
     comp["launches"] += (client["lz4_rows"] + cnt["lz4_rows"]
                          + robust["lz4_rows"] + capi["lz4_rows"]
-                         + eos["lz4_rows"] + api["lz4_rows"])
+                         + eos["lz4_rows"] + api["lz4_rows"]
+                         + obs["lz4_rows"])
     line = kernel_line(main_path, timing, max(max_err, engine["max_err"]))
     lz4_line = {"name": "lz4_rows", "route": "cuda",
                 "source": "librdkafka_tpu_torch/csrc/lz4_rows.cu",

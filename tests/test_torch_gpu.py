@@ -13,8 +13,9 @@ and H of parallel/mesh.py) on four shards of the visible cards, through
 the engine and the entry points, the robustness tier (the QoS flood
 scenario and the stress gate) with its device legs on the card, the
 C ABI (capi/gpu_smoke.c through libtkafka.so) on the card, the
-exactly-once copy of chip_smoke.py phase 10 and the delivery path and
-consumer API of its phase 11, each at a small size.  Marked
+exactly-once copy of chip_smoke.py phase 10, the delivery path and
+consumer API of its phase 11, and a traced produce whose device_launch
+spans match the CRC kernel's launches, each at a small size.  Marked
 ``gpu``; each skips on a host without CUDA.  On a card
 (tests/conftest.py imports jax, which the GPU host lacks):
 
@@ -759,3 +760,38 @@ def test_delivery_and_consumer_api_on_card(card):
     import chip_smoke
     out = chip_smoke.phase_api("card test", parts=8, per_part=400)
     assert out["crc_rows"] > 0 and out["lz4_rows"] > 0
+
+
+# ------------------------------------------------------- observability --
+
+def test_observability_traced_produce_on_card(card):
+    """A traced GPU produce of 64 partitions x 64 records on the CRC
+    tickets, warm: one device_launch span for each crc_rows launch the
+    round made, each with route "device" on card 0, unsharded."""
+    from librdkafka_tpu_torch import Producer
+    from librdkafka_tpu_torch.obs import trace
+    p = Producer({"bootstrap.servers": "", "test.mock.num.brokers": 1,
+                  "test.mock.default.partitions": 64,
+                  "compression.codec": "lz4", "linger.ms": 5,
+                  "compression.backend": "gpu", "gpu.governor": False,
+                  "gpu.launch.min.batches": 1, "trace.enable": True,
+                  "trace.ring.events": 1 << 16})
+    try:
+        assert p._rk.codec_provider.wait_warm(300)
+        before = crc.launches
+        t0 = trace.now()
+        for j in range(64):
+            for i in range(64):
+                p.produce("obs-card", value=b"v%02d-%03d " % (i, j) * 64,
+                          partition=i)
+        assert p.flush(120) == 0
+        launched = crc.launches - before
+        spans = [e for e in trace.collect_events()
+                 if e["name"] == "device_launch"
+                 and round(e["ts"] * 1e3) >= t0]
+    finally:
+        p.close()
+    assert launched > 0 and len(spans) == launched
+    assert all(e["args"]["route"] == "device" and e["args"]["device"] == 0
+               and e["args"]["sharded"] is False for e in spans)
+    assert not trace.enabled and trace.active_ring_count() == 0
