@@ -219,7 +219,36 @@ spans open meanwhile; every record delivered and each GPU leg launching.
 record and one round: the flight dump holds the fan-in wait, the round's
 launch and readback and the timeout, dumps stop at FLIGHT_MAX_DUMPS, and
 obs.collect merges it with a Consumer's trace_dump.  Phase 12 fails past
-60 s.  Any mismatch exits non-zero.
+60 s.  Phase 13 holds the client's remaining planes on the card, legs a
+(CRC tickets) and b (gpu.compress.device=true), governor off and warm:
+(a) the same seeded rounds (64 partitions x 1,600 records x 1,024 B lz4,
+fixed timestamps, batches cut by count, three repeats) over sasl_ssl on
+a 3-broker mock with a TLS listener that requires a client certificate
+(an idempotent SCRAM-SHA-512 Producer with a PKCS#12 keystore, an
+OAUTHBEARER check.crcs Consumer) and over plaintext: the stored blobs
+equal byte for byte and exact, every record read back; a wrong SCRAM
+password and an unknown CA refused with the reference's DR code and no
+thread left; msgs/s of both transports.  The certificates come from
+tests/tlsutil.py (loaded by path) where cryptography imports, else from
+the openssl command; with neither the phase fails.  (b) AdminClient over
+sasl_ssl: create_topics (64 partitions, replication 3),
+describe/alter_configs, a leg-a producer that grows with the topic to 96
+partitions (create_partitions midway; every new partition's batch in
+the CRC tickets after the growth), a GPU consumer of all 96, then
+list/describe/delete_groups and delete_topics.  (c) MsgVer1 (0.10.2) and
+MsgVer0 (0.9.0) brokers, 64 x 400 records each: lz4 wrappers written on
+the host, every message CRC (outer and inner) == zlib.crc32, every
+legacy region verified through crc32_submit in crc32 launches of
+crc_rows, a flipped byte -> _BAD_MSG; then a mixed log (a MsgVer1 run,
+then v2) over 64 partitions, its v2 batches verified inline on the host
+by client/kafka.py's mixed-log split (the reference's route too).  (d)
+sockem throttles the idempotent producer's link to 30 kB/s with a
+ProduceRequest on the wire, then kills every connection: each record
+stored once, in order, exact, every retried batch rebuilt through the
+device route; a check.crcs consumer's connection killed mid-fetch;
+head-of-line blocking on one producer over two brokers, one at 2,500 ms
+RTT (the fast broker's 20 DRs under 2.0 s, p99 printed).  Phase 13 fails
+past 90 s.  Any mismatch exits non-zero.
 
 The last two lines of standard output are a ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -1562,18 +1591,20 @@ def p6_conf(backend: str, device: str, parts: int, extra=None) -> dict:
     return conf
 
 
-def p6_produce(p, topic: str, keys, vals) -> float:
+def p6_produce(p, topic: str, keys, vals, ts0: int | None = None) -> float:
     """Every record of ``vals[partition][j]``, keyed by partition, with
-    explicit partitions, then flush(); msgs/s over produce() + flush()."""
+    explicit partitions (and timestamps ``ts0 + j`` when ``ts0`` is
+    given), then flush(); msgs/s over produce() + flush()."""
     produce = p.produce
     n = sum(len(v) for v in vals)
     t0 = time.perf_counter()
     for j in range(len(vals[0])):
-        for i, k in enumerate(keys):
-            produce(topic, value=vals[i][j], key=k, partition=i)
+        ts = {} if ts0 is None else {"timestamp": ts0 + j}
+        for i in range(len(vals)):
+            produce(topic, value=vals[i][j], key=keys[i], partition=i, **ts)
     left = p.flush(300)
     dt = time.perf_counter() - t0
-    check(left == 0, f"phase 6 {topic}: flush() left {left} messages")
+    check(left == 0, f"{topic}: flush() left {left} messages")
     return n / dt
 
 
@@ -1621,10 +1652,11 @@ def p6_check_stored(cluster, topic: str, keys, vals, det: bool) -> int:
     return nbatch
 
 
-def p6_consume(c, topic: str, keys, vals) -> float:
+def p6_consume(c, topic: str, keys, vals, kill=None) -> float:
     """Assign every partition of ``topic`` from the beginning and read
     it all back through the CRC-checking consumer; each partition's
-    (key, value, offset) sequence must be the produced one.  msgs/s from
+    (key, value, offset) sequence must be the produced one, each record
+    once (``kill()`` runs when a quarter has been read).  msgs/s from
     assign() to the last record."""
     from librdkafka_tpu_torch.client.consumer import TopicPartition
     from librdkafka_tpu_torch.protocol.proto import OFFSET_BEGINNING
@@ -1636,15 +1668,17 @@ def p6_consume(c, topic: str, keys, vals) -> float:
               for i in range(len(keys))])
     deadline = time.monotonic() + 300
     while got < n:
-        check(time.monotonic() < deadline,
-              f"phase 6 {topic}: consumed {got} of {n}")
+        check(time.monotonic() < deadline, f"{topic}: consumed {got} of {n}")
         for m in c.consume(min(10_000, n - got), 0.5):
-            check(m.error is None, f"phase 6 {topic}: {m.error}")
+            if kill is not None and got >= n // 4:
+                kill()
+                kill = None
+            check(m.error is None, f"{topic}: {m.error}")
             i, j = m.partition, nxt[m.partition]
             check(j < len(vals[i]) and m.offset == j and m.key == keys[i]
                   and m.value == vals[i][j],
-                  f"phase 6 {topic}[{i}]: record {j} out of order or "
-                  f"wrong (offset {m.offset})")
+                  f"{topic}[{i}]: record {j} missing, doubled, out of "
+                  f"order or wrong (offset {m.offset})")
             nxt[i] = j + 1
             got += 1
     return n / (time.perf_counter() - t0)
@@ -4856,6 +4890,885 @@ def phase_obs(smi: str, parts: int = PARTITIONS,
     return total
 
 
+# --------------------------------------------------------------- phase 13 --
+
+P13_PER_PART = 1600
+P13_LIMIT_S = 90
+P13_REPEATS = 3
+#: batch.num.messages of 13a (with linger.ms 1,000): every batch is cut
+#: by count, so the sasl_ssl round's blobs can equal the plaintext one's
+P13_BATCH = 400
+#: 13c: records a partition for each legacy broker version
+P13_LEGACY_PER = 400
+#: 13c's broker versions and the MessageSet magic each takes
+P13_VERSIONS = (("0.10.2", 1), ("0.9.0", 0))
+#: 13c's mixed log: a MsgVer1 run then a v2 run of this many records
+P13_MIXED_RUN = 25
+P13_USERS = {"alice": "wonderland"}
+P13_LEGS = (("a", {}), ("b", {"gpu.compress.device": True}))
+
+
+class PlaneError(RuntimeError):
+    """Phase 13 (TLS, SASL, admin, legacy brokers, socket faults) broke
+    one of its checks."""
+
+
+def p13_check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise PlaneError(msg)
+
+
+def p13_certs(tmpdir: str) -> dict:
+    """A CA, a server certificate for 127.0.0.1 / localhost, a client
+    pair and a PKCS#12 keystore of it (password ``kstore``), in
+    ``tmpdir``: from tests/tlsutil.py (loaded by path) where
+    ``cryptography`` imports, else from the ``openssl`` command; with
+    neither, phase 13 fails."""
+    import importlib.util
+    try:
+        import cryptography
+        crypto = cryptography.__version__
+    except ImportError:
+        crypto = None
+    openssl = shutil.which("openssl")
+    ver = (subprocess.run([openssl, "version"], capture_output=True,
+                          text=True).stdout.strip() if openssl else None)
+    print(f"phase 13 certificates: import cryptography "
+          f"{crypto or 'fails'}; openssl version: {ver or 'absent'}; made "
+          f"by {'tests/tlsutil.make_certs' if crypto else 'openssl'}")
+    if crypto:
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "tlsutil.py")
+        spec = importlib.util.spec_from_file_location("p13_tlsutil", path)
+        tlsutil = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(tlsutil)
+        return tlsutil.make_certs(tmpdir)
+    if not openssl:
+        raise PlaneError("phase 13 needs the cryptography package or the "
+                         "openssl command to make its certificates: "
+                         "neither is here")
+    return p13_openssl_certs(openssl, tmpdir)
+
+
+def p13_openssl_certs(openssl: str, tmpdir: str) -> dict:
+    """tests/tlsutil.make_certs' files through the openssl command."""
+    def run(*args):
+        subprocess.run([openssl, *args], check=True, capture_output=True,
+                       cwd=tmpdir)
+    ext = os.path.join(tmpdir, "san.cnf")
+    with open(ext, "w") as f:
+        f.write("basicConstraints=critical,CA:FALSE\n"
+                "subjectAltName=DNS:localhost,IP:127.0.0.1\n")
+    run("req", "-x509", "-newkey", "rsa:2048", "-nodes", "-days", "30",
+        "-subj", "/CN=mock-ca", "-keyout", "ca.key", "-out", "ca.pem",
+        "-addext", "basicConstraints=critical,CA:TRUE")
+    for name, cn in (("server", "localhost"), ("client", "mock-client")):
+        run("req", "-newkey", "rsa:2048", "-nodes", "-subj", f"/CN={cn}",
+            "-keyout", f"{name}.key", "-out", f"{name}.csr")
+        run("x509", "-req", "-in", f"{name}.csr", "-CA", "ca.pem",
+            "-CAkey", "ca.key", "-CAcreateserial", "-days", "30",
+            "-out", f"{name}.pem", "-extfile", ext)
+    run("pkcs12", "-export", "-inkey", "client.key", "-in", "client.pem",
+        "-certfile", "ca.pem", "-name", "client", "-out", "client.p12",
+        "-passout", "pass:kstore")
+    j = lambda n: os.path.join(tmpdir, n)
+    return {"ca": j("ca.pem"), "server_cert": j("server.pem"),
+            "server_key": j("server.key"), "client_cert": j("client.pem"),
+            "client_key": j("client.key"), "client_p12": j("client.p12")}
+
+
+def p13_kit():
+    """The port's names phase 13 drives."""
+    from types import SimpleNamespace
+
+    from librdkafka_tpu_torch import (AdminClient, ConfigResource, Consumer,
+                                      NewPartitions, NewTopic, Producer)
+    from librdkafka_tpu_torch.client import partition
+    from librdkafka_tpu_torch.client.consumer import TopicPartition
+    from librdkafka_tpu_torch.client.errors import Err
+    from librdkafka_tpu_torch.mock.cluster import MockCluster
+    from librdkafka_tpu_torch.mock.sockem import Sockem
+    return SimpleNamespace(
+        Producer=Producer, Consumer=Consumer, TopicPartition=TopicPartition,
+        MockCluster=MockCluster, AdminClient=AdminClient, NewTopic=NewTopic,
+        NewPartitions=NewPartitions, ConfigResource=ConfigResource,
+        Sockem=Sockem, Err=Err, Toppar=partition.Toppar)
+
+
+def p13_tls_cluster(kit, certs, topics: dict, brokers: int = 3):
+    """A mock whose brokers speak TLS, require a client certificate and
+    check SASL credentials (``P13_USERS``)."""
+    return kit.MockCluster(
+        num_brokers=brokers, topics=topics, auto_create_topics=False,
+        tls={"certfile": certs["server_cert"], "keyfile": certs["server_key"],
+             "cafile": certs["ca"], "require_client_cert": True},
+        sasl_users=P13_USERS)
+
+
+def p13_scram(certs, password: str = "wonderland") -> dict:
+    """sasl_ssl with SCRAM-SHA-512, the client pair from the PKCS#12
+    keystore."""
+    return {"security.protocol": "sasl_ssl", "ssl.ca.location": certs["ca"],
+            "ssl.keystore.location": certs["client_p12"],
+            "ssl.keystore.password": "kstore",
+            "sasl.mechanisms": "SCRAM-SHA-512", "sasl.username": "alice",
+            "sasl.password": password}
+
+
+def p13_oauth(certs) -> dict:
+    """sasl_ssl with OAUTHBEARER (the built-in unsecured-JWS handler),
+    the client pair from PEM files."""
+    return {"security.protocol": "sasl_ssl", "ssl.ca.location": certs["ca"],
+            "ssl.certificate.location": certs["client_cert"],
+            "ssl.key.location": certs["client_key"],
+            "sasl.mechanisms": "OAUTHBEARER",
+            "enable.sasl.oauthbearer.unsecure.jwt": True,
+            "sasl.oauthbearer.config": "principal=smoke"}
+
+
+def p13_values(parts: int, per: int) -> list:
+    flat = payloads(parts * per, VALUE_SIZE)
+    return [flat[i * per:(i + 1) * per] for i in range(parts)]
+
+
+def p13_keys(parts: int) -> list:
+    return [b"p%02d" % i for i in range(parts)]
+
+
+def p13_producer(kit, boot: str, backend: dict, extra: dict):
+    """An idempotent lz4 GPU Producer, its route warm."""
+    p = kit.Producer({"bootstrap.servers": boot, "enable.idempotence": True,
+                      "compression.codec": "lz4", "linger.ms": 5,
+                      "queue.buffering.max.messages": 1_000_000,
+                      **backend, **extra})
+    eos_warm(p)
+    return p
+
+
+def p13_consumer(kit, boot: str, backend: dict, group: str, extra: dict,
+                 errs: list | None = None):
+    """A check.crcs GPU Consumer, its route warm."""
+    conf = {"bootstrap.servers": boot, "group.id": group,
+            "auto.offset.reset": "earliest", "check.crcs": True,
+            **backend, **extra}
+    if errs is not None:
+        conf["error_cb"] = errs.append
+    c = kit.Consumer(conf)
+    eos_warm(c)
+    return c
+
+
+def p13_blobs(cluster, topic: str) -> list:
+    return [[bytes(b) for _o, b in part.log] for part in cluster.topics[topic]]
+
+
+def p13_engines_clean(clients, compress: bool, what: str) -> None:
+    """No job of a counted client's engine went to a CPU route."""
+    for c in clients:
+        p11_no_cpu(eos_snapshot(eos_engine(c)), what, compress)
+
+
+def p13_threads() -> set:
+    return {t for t in threading.enumerate() if t.is_alive() and (
+        t.name.startswith("rdk:broker/") or "engine" in t.name)}
+
+
+def p13_refused(kit, cluster, backend: dict, conf: dict, what: str) -> str:
+    """A Producer that the cluster must refuse: its record times out
+    (the code the reference's test_0097 asserts, held equal to the
+    reference in tests/test_torch_security.py) and, after close(), none
+    of its engine or broker threads is left."""
+    before = p13_threads()
+    drs: list = []
+    p = kit.Producer({"bootstrap.servers": cluster.bootstrap_servers(),
+                      "message.timeout.ms": 1000, "linger.ms": 5,
+                      "dr_msg_cb": lambda e, m: drs.append(e),
+                      **backend, **conf})
+    try:
+        p.produce("p13-tls-r0", value=b"refused", partition=0)
+        p13_check(p.flush(15) == 0, f"{what}: flush() did not drain")
+    finally:
+        p.close()
+    codes = [e.code.name if e is not None else None for e in drs]
+    p13_check(codes == ["_MSG_TIMED_OUT"], f"{what}: DRs {codes}, not "
+              "[_MSG_TIMED_OUT] as in the reference")
+    deadline = time.monotonic() + 5
+    while p13_threads() - before and time.monotonic() < deadline:
+        time.sleep(0.05)
+    left = sorted(t.name for t in p13_threads() - before)
+    p13_check(not left, f"{what}: threads left after close(): {left}")
+    return codes[0]
+
+
+def p13_tls(kit, certs, backend: dict, tag: str, extra: dict, parts: int,
+            per: int, device: str, smi: str, refuse: bool) -> dict:
+    """13a, one leg: the same seeded rounds (fixed timestamps, batches cut
+    by count) over sasl_ssl (SCRAM-SHA-512 producer with a PKCS#12
+    keystore, OAUTHBEARER consumer, mutual TLS) and over plaintext, each
+    on its own 3-broker mock, three repeats interleaved; the stored blobs
+    must be equal byte for byte, exact, and read back.  Returns the
+    sasl_ssl cluster (13b runs on it: the caller stops it) and counts."""
+    card = device != "cpu"
+    keys, vals = p13_keys(parts), p13_values(parts, per)
+    topics = {f"p13-tls-r{r}": parts for r in range(P13_REPEATS)}
+    fixed = {"linger.ms": 1000, "batch.num.messages": P13_BATCH}
+    sec = p13_tls_cluster(kit, certs, topics)
+    plain = kit.MockCluster(num_brokers=3, topics=topics,
+                            auto_create_topics=False)
+    clients = []
+    try:
+        bk = {**backend, **extra}
+        ps = p13_producer(kit, sec.bootstrap_servers(), bk,
+                          {**fixed, **p13_scram(certs)})
+        clients.append(ps)
+        pp = p13_producer(kit, plain.bootstrap_servers(), bk, fixed)
+        clients.append(pp)
+        cs = p13_consumer(kit, sec.bootstrap_servers(), backend,
+                          f"p13-{tag}", p13_oauth(certs))
+        clients.append(cs)
+        cp = p13_consumer(kit, plain.bootstrap_servers(), backend,
+                          f"p13-{tag}", {})
+        clients.append(cp)
+        crc.launches = 0
+        lz4.launches = 0
+        eng0 = {id(c): dict(eos_engine(c).stats) for c in clients}
+        rates = {"sasl_ssl": {"produce": [], "consume": []},
+                 "plaintext": {"produce": [], "consume": []}}
+        for t in topics:
+            rates["plaintext"]["produce"].append(
+                p6_produce(pp, t, keys, vals, ts0=NOW_MS))
+            rates["sasl_ssl"]["produce"].append(
+                p6_produce(ps, t, keys, vals, ts0=NOW_MS))
+        prod = {"crc_rows": crc.launches, "lz4_rows": lz4.launches}
+        for t in topics:
+            rates["plaintext"]["consume"].append(
+                p6_consume(cp, t, keys, vals))
+            rates["sasl_ssl"]["consume"].append(
+                p6_consume(cs, t, keys, vals))
+        counts = {"crc_rows": crc.launches, "lz4_rows": lz4.launches}
+        dev = bool(extra)
+        for c in clients:
+            launched = eos_engine(c).stats["launches"] - eng0[id(c)]["launches"]
+            role = "producer" if c in (ps, pp) else "consumer"
+            if role == "producer" and dev:
+                p13_check(launched == 0, f"13a {tag}: a producer made "
+                          f"{launched} CRC launches on the compress route")
+                p13_check(eos_engine(c).compress_stats["launches"] > 0,
+                          f"13a {tag}: a producer made no compress launch")
+            else:
+                p13_check(launched > 0, f"13a {tag}: a {role} made no CRC "
+                          "launch")
+        p13_engines_clean(clients, dev, f"13a {tag}")
+        if card:
+            p13_check(prod["lz4_rows" if dev else "crc_rows"] > 0,
+                      f"13a {tag}: producer kernel launches {prod}")
+            p13_check(counts["crc_rows"] - prod["crc_rows"] > 0,
+                      f"13a {tag}: no crc_rows launch for the consumers")
+            p13_check(dev or counts["lz4_rows"] == 0,
+                      f"13a {tag}: an lz4_rows launch on the CRC tickets")
+        nbatch = 0
+        for t in topics:
+            p13_check(p13_blobs(sec, t) == p13_blobs(plain, t),
+                      f"13a {tag} {t}: the sasl_ssl blobs != the plaintext "
+                      "round's")
+            nbatch += p6_check_stored(sec, t, keys, vals, det=dev)
+        refusals = {}
+        if refuse:
+            refusals["SCRAM password"] = p13_refused(
+                kit, sec, backend, p13_scram(certs, "wrong"),
+                "13a wrong SCRAM password")
+            unknown = {k: v for k, v in p13_scram(certs).items()
+                       if k != "ssl.ca.location"}
+            refusals["unknown CA"] = p13_refused(
+                kit, sec, backend, unknown, "13a unknown CA")
+    except BaseException:
+        sec.stop()                  # on success 13b runs on it first
+        raise
+    finally:
+        for c in clients:
+            c.close()
+        plain.stop()
+    n = parts * per
+    print(f"phase 13a, leg {tag} "
+          f"({'gpu.compress.device' if extra else 'CRC tickets'}): "
+          f"{P13_REPEATS} x {n} records x {VALUE_SIZE} B lz4 over {parts} "
+          f"idempotent partitions on 3 brokers, sasl_ssl (SCRAM-SHA-512 "
+          f"producer, PKCS#12 keystore; OAUTHBEARER consumer; mutual TLS) "
+          f"and plaintext: {nbatch} stored batches equal byte for byte, "
+          f"exact (CRC, {'deterministic' if extra else 'default'} lz4 "
+          f"frames, records, sequences), read back in order by check.crcs "
+          f"GPU consumers; no CPU route"
+          + (f"; refused: {refusals}, no thread left" if refuse else ""))
+    for tr in ("sasl_ssl", "plaintext"):
+        print(f"  {tr}: produce {p6_rates(rates[tr]['produce'])}; consume "
+              f"{p6_rates(rates[tr]['consume'])} [{smi}]")
+    print(f"  launches: crc_rows {counts['crc_rows']} (producers "
+          f"{prod['crc_rows']}), lz4_rows {counts['lz4_rows']} [{smi}]")
+    return {"cluster": sec, "counts": counts}
+
+
+def p13_admin(kit, cluster, certs, backend: dict, parts: int, per: int,
+              device: str, smi: str) -> dict:
+    """13b: AdminClient over sasl_ssl makes a topic of ``parts``
+    partitions at replication 3, describes and alters its config; a
+    leg-a GPU Producer writes half of each partition's records, the topic
+    grows to 1.5x ``parts`` midway, and the producer's metadata refresh
+    carries the rest into the new partitions too, their batches in the
+    CRC tickets; a GPU Consumer reads every partition; then the group
+    ops after the consumer closed, and delete_topics."""
+    card = device != "cpu"
+    topic, group = "p13-admin", "p13-admin-g"
+    grown = parts + parts // 2
+    half = per // 2
+    keys = p13_keys(grown)
+    vals = p13_values(grown, per)
+    vals = vals[:parts] + [v[:half] for v in vals[parts:]]
+    sec = p13_scram(certs)
+    admin = kit.AdminClient({"bootstrap.servers": cluster.bootstrap_servers(),
+                             **sec})
+    p = c = None
+    try:
+        def outcome(fut):
+            try:
+                return fut.result(timeout=30)
+            except Exception as e:      # KafkaException: its code
+                return e.error.code.name
+        made = outcome(admin.create_topics(
+            [kit.NewTopic(topic, parts, replication_factor=3)])[topic])
+        p13_check(made is None, f"13b create_topics: {made}")
+        res = kit.ConfigResource(kit.ConfigResource.TOPIC, topic)
+        before = outcome(admin.describe_configs([res])[res])
+        p13_check(before["retention.ms"].value == "604800000",
+                  f"13b describe_configs: {before.get('retention.ms')}")
+        res2 = kit.ConfigResource(kit.ConfigResource.TOPIC, topic,
+                                  set_config={"retention.ms": "3600000"})
+        altered = outcome(admin.alter_configs([res2])[res2])
+        p13_check(altered is None, f"13b alter_configs: {altered}")
+        p = p13_producer(kit, cluster.bootstrap_servers(), backend,
+                         {**sec, "topic.metadata.refresh.interval.ms": 200})
+        crc.launches = 0
+        p6_produce(p, topic, keys, [v[:half] for v in vals[:parts]],
+                   ts0=NOW_MS)
+        first = crc.launches
+        grow = outcome(admin.create_partitions(
+            [kit.NewPartitions(topic, grown)])[topic])
+        p13_check(grow is None, f"13b create_partitions: {grow}")
+        p11_wait(p, lambda: p.rk.topics[topic].partition_cnt == grown,
+                 f"13b producer metadata at {grown} partitions")
+        regions: set = set()
+        submit = p._rk.codec_provider.crc32c_submit
+
+        def recording(bufs, *a, **kw):
+            regions.update(bytes(b) for b in bufs)
+            return submit(bufs, *a, **kw)
+        p._rk.codec_provider.crc32c_submit = recording
+        launch0 = eos_engine(p).stats["launches"]
+        p6_produce(p, topic, keys, [v[half:] for v in vals[:parts]]
+                    + vals[parts:], ts0=NOW_MS + half)
+        after = crc.launches - first
+        launched = eos_engine(p).stats["launches"] - launch0
+        from librdkafka_tpu_torch.protocol.msgset import iter_batches
+        new_batches = 0
+        for q in range(parts, grown):
+            for _o, blob in cluster.partition(topic, q).log:
+                for info, _payload, full in iter_batches(blob):
+                    p13_check(bytes(full[V2_OF_Attributes:]) in regions,
+                              f"13b {topic}[{q}]: a new partition's batch "
+                              "was not in the CRC tickets after the growth")
+                    new_batches += 1
+        p13_check(new_batches >= parts // 2 and launched > 0,
+                  f"13b: {new_batches} batches in the new partitions, "
+                  f"{launched} CRC launches after the growth")
+        p13_check(not card or after > 0, "13b: no crc_rows launch after "
+                  "the growth")
+        nbatch = p6_check_stored(cluster, topic, keys, vals, det=False)
+        p13_engines_clean([p], False, "13b producer")
+        c = p13_consumer(kit, cluster.bootstrap_servers(), backend, group,
+                         p13_oauth(certs))
+        c.subscribe([topic])
+        n = sum(map(len, vals))
+        nxt, got = [0] * grown, 0
+        deadline = time.monotonic() + 120
+        while got < n:
+            p13_check(time.monotonic() < deadline, f"13b read {got} of {n}")
+            for m in c.consume(min(10_000, n - got), 0.5):
+                p13_check(m.error is None, f"13b: {m.error}")
+                i, j = m.partition, nxt[m.partition]
+                p13_check(j < len(vals[i]) and m.offset == j
+                          and m.value == vals[i][j],
+                          f"13b {topic}[{i}]: record {j} missing, doubled "
+                          "or wrong")
+                nxt[i] = j + 1
+                got += 1
+        p13_check(eos_engine(c).stats["launches"] > 0,
+                  "13b: the consumer made no CRC launch")
+        p13_engines_clean([c], False, "13b consumer")
+        listed = outcome(admin.list_groups())
+        desc = outcome(admin.describe_groups([group])[group])
+        p13_check((group, "consumer") in listed and desc["state"] == "Stable"
+                  and len(desc["members"]) == 1,
+                  f"13b list/describe_groups: {listed}, {desc}")
+        c.close()
+        c = None
+        gone = outcome(admin.delete_groups([group])[group])
+        deleted = outcome(admin.delete_topics([topic])[topic])
+        p13_check(gone is None and deleted is None and topic not in
+                  cluster.topics, f"13b delete_groups {gone}, delete_topics "
+                  f"{deleted}")
+    finally:
+        if c is not None:
+            c.close()
+        if p is not None:
+            p.close()
+        admin.close()
+    print(f"phase 13b: AdminClient over sasl_ssl: create_topics {parts} "
+          f"partitions x replication 3, describe_configs retention.ms "
+          f"604800000, alter_configs 3600000; the leg-a producer grew with "
+          f"the topic to {grown} partitions ({new_batches} batches in the "
+          f"new ones, each in the CRC tickets after the growth: {launched} "
+          f"engine launches, crc_rows {after}); {nbatch} batches exact; "
+          f"{n} records read back over {grown} partitions; list, describe "
+          f"and delete_groups, delete_topics ok [{smi}]")
+    return {"crc_rows": crc.launches, "lz4_rows": 0}
+
+
+def p13_count_polys(client) -> dict:
+    """Tally the polynomials of the CRC jobs each launch of the client's
+    engine carries: {"crc32c": n, "crc32": n, "fused": n}."""
+    eng = eos_engine(client)
+    seen = {"crc32c": 0, "crc32": 0, "fused": 0}
+    launch = eng._launch_crc
+
+    def counting(group):
+        rec = launch(group)
+        if rec is not None:
+            polys = {j.poly for j in group}
+            seen["fused" if len(polys) > 1 else next(iter(polys))] += 1
+        return rec
+    eng._launch_crc = counting
+    return seen
+
+
+def p13_legacy_value(region: bytes) -> tuple:
+    """(codec bits, value) of a MsgVer0/1 message's CRC region."""
+    magic, attrs = region[0], region[1]
+    o = 2 + (8 if magic == 1 else 0)
+    klen = int.from_bytes(region[o:o + 4], "big", signed=True)
+    o += 4 + max(klen, 0)
+    vlen = int.from_bytes(region[o:o + 4], "big", signed=True)
+    return attrs & 0x07, region[o + 4:o + 4 + vlen]
+
+
+def p13_legacy_stored(cluster, topic: str, keys, vals, magic: int) -> int:
+    """Every stored message of ``topic`` is a MsgVer``magic`` lz4 wrapper
+    whose CRC == zlib.crc32 of its region, and so is every message inside
+    it; the records are the produced ones in order, at the offsets the
+    mock assigned like a broker (0, 1, ...).  Returns the wrappers."""
+    from librdkafka_tpu_torch.protocol.msgset import parse_msgset_v01
+    wrappers = 0
+    for i in range(len(vals)):
+        got = []
+        for _o, blob in cluster.partition(topic, i).log:
+            p13_check(blob[16] == magic, f"13c {topic}[{i}]: magic "
+                      f"{blob[16]}, not {magic}")
+            for _off, crc32, region in iter_legacy_crc_regions(blob):
+                p13_check(zlib.crc32(region) == crc32,
+                          f"13c {topic}[{i}]: a message CRC != zlib.crc32")
+                codec, value = p13_legacy_value(region)
+                p13_check(codec == 3, f"13c {topic}[{i}]: codec {codec}")
+                inner = native.lz4f_decompress_many([value], None)[0]
+                for _o2, c2, r2 in iter_legacy_crc_regions(inner):
+                    p13_check(zlib.crc32(r2) == c2, f"13c {topic}[{i}]: an "
+                              "inner message CRC != zlib.crc32")
+                wrappers += 1
+            got.extend((r.offset, r.key, r.value) for r in parse_msgset_v01(
+                blob, lambda c, b: native.lz4f_decompress_many([b], None)[0]))
+        p13_check(got == [(j, keys[i], v) for j, v in enumerate(vals[i])],
+                  f"13c {topic}[{i}]: stored records != produced")
+    return wrappers
+
+
+def p13_legacy(kit, backend: dict, parts: int, device: str,
+               smi: str) -> dict:
+    """13c: MsgVer1 (0.10.2) and MsgVer0 (0.9.0, ApiVersions closes the
+    connection) brokers: the producer writes lz4 wrappers on the host (no
+    batched seam in either package), the GPU consumer verifies every
+    message through crc32_submit (crc_rows, crc32 polynomial), a flipped
+    byte reaches the application as _BAD_MSG; then a mixed log (a MsgVer1
+    run, then v2) read end to end."""
+    card = device != "cpu"
+    keys, vals = p13_keys(parts), p13_values(parts, P13_LEGACY_PER)
+    total = {"crc_rows": 0, "lz4_rows": 0}
+    out = []
+    for bver, magic in P13_VERSIONS:
+        topic = f"p13-legacy-{magic}"
+        cluster = kit.MockCluster(num_brokers=1, topics={topic: parts,
+                                                         "p13-bad": 1},
+                                  broker_version=bver)
+        p = c = None
+        try:
+            old = {"broker.version.fallback": bver}
+            p = p13_producer(kit, cluster.bootstrap_servers(), backend, old)
+            p6_produce(p, topic, keys, vals, ts0=NOW_MS)
+            wrappers = p13_legacy_stored(cluster, topic, keys, vals, magic)
+            errs: list = []
+            c = p13_consumer(kit, cluster.bootstrap_servers(), backend,
+                             f"p13-legacy-{magic}", old, errs)
+            polys = p13_count_polys(c)
+            regions = [0]
+            submit = c._rk.codec_provider.crc32_submit
+
+            def counting(bufs, *a, **kw):
+                regions[0] += len(bufs)
+                return submit(bufs, *a, **kw)
+            c._rk.codec_provider.crc32_submit = counting
+            crc.launches = 0
+            rate = p6_consume(c, topic, keys, vals)
+            launches = crc.launches
+            polys = dict(polys)     # the read's launches, not the corrupt one's
+            p13_check(polys["crc32"] > 0 and polys["crc32c"] == 0
+                      and regions[0] >= wrappers,
+                      f"13c {bver}: launches by polynomial {polys}, "
+                      f"{regions[0]} regions in crc32_submit of {wrappers}")
+            p13_check(not card or launches > 0, f"13c {bver}: no crc_rows "
+                      "launch")
+            p13_engines_clean([c], False, f"13c {bver} consumer")
+            p13_bad_legacy(kit, p, c, cluster, errs, bver)
+            total["crc_rows"] += crc.launches
+        finally:
+            for cl in (c, p):
+                if cl is not None:
+                    cl.close()
+            cluster.stop()
+        out.append(f"{bver} (MsgVer{magic}): {wrappers} lz4 wrappers "
+                   f"exact (zlib CRCs inside and out), read back at "
+                   f"{rate:.1f} msgs/s, crc32 launches {polys['crc32']} "
+                   f"(crc_rows {launches}), {regions[0]} legacy regions "
+                   f"through crc32_submit, flipped byte -> _BAD_MSG")
+    mixed = p13_mixed(kit, backend, parts, device)
+    total["crc_rows"] += mixed["crc_rows"]
+    print(f"phase 13c: {parts} x {P13_LEGACY_PER} x {VALUE_SIZE} B a "
+          f"version; " + "; ".join(out) + f" [{smi}]")
+    print(f"  mixed log over {parts} partitions ({P13_MIXED_RUN} MsgVer1 "
+          f"then {P13_MIXED_RUN} v2 records each): {mixed['records']} read "
+          f"in order; {mixed['legacy']} legacy regions through "
+          f"crc32_submit, {mixed['inline']} v2 batches verified inline on "
+          f"the host (client/kafka.py's mixed-log split, the reference's "
+          f"route too, not a fallback) [{smi}]")
+    return total
+
+
+def p13_bad_legacy(kit, p, c, cluster, errs: list, bver: str) -> None:
+    """A stored legacy wrapper with one byte flipped: the consumer
+    reports _BAD_MSG and delivers nothing of it."""
+    for i in range(10):
+        p.produce("p13-bad", value=b"corrupt-%02d " % i * 40, partition=0)
+    p13_check(p.flush(60) == 0, f"13c {bver}: p13-bad flush() did not drain")
+    part = cluster.partition("p13-bad", 0)
+    base, blob = part.log[0]
+    bad = bytearray(blob)
+    bad[-5] ^= 0xFF
+    part.log[0] = (base, bytes(bad))
+    c.assign([kit.TopicPartition("p13-bad", 0, OFFSET_BEGINNING)])
+    deadline = time.monotonic() + 30
+    while (not any(e.code == kit.Err._BAD_MSG for e in errs)
+           and time.monotonic() < deadline):
+        m = c.poll(0.2)
+        p13_check(m is None or m.error is not None,
+                  f"13c {bver}: the corrupted wrapper was delivered")
+    p13_check(any(e.code == kit.Err._BAD_MSG for e in errs),
+              f"13c {bver}: the consumer reported {errs}, not _BAD_MSG")
+
+
+def p13_mixed(kit, backend: dict, parts: int, device: str) -> dict:
+    """0118's test_mixed_msgver_log over ``parts`` partitions: each log
+    holds a MsgVer1 run, then the v2 batch a GPU producer appends; a
+    check.crcs GPU consumer reads every record in order.  Counts the
+    legacy regions through crc32_submit and the v2 batches verified
+    inline (client/kafka.py's mixed-log split calls verify_crc_v2)."""
+    from librdkafka_tpu_torch.client import kafka as port_kafka
+    from librdkafka_tpu_torch.protocol.msgset import Record
+    run = P13_MIXED_RUN
+    keys = p13_keys(parts)
+    old = p13_values(parts, run)
+    new = [[b"new-%d-%d " % (i, j) * 40 for j in range(run)]
+           for i in range(parts)]
+    cluster = kit.MockCluster(num_brokers=1, topics={"p13-mixed": parts})
+    p = c = None
+    inline = [0]
+    verify = port_kafka.verify_crc_v2
+
+    def counting(info, full):
+        inline[0] += 1
+        return verify(info, full)
+    try:
+        for i in range(parts):
+            cluster.partition("p13-mixed", i).append(write_msgset_v01(
+                [Record(key=keys[i], value=v, timestamp=NOW_MS + j)
+                 for j, v in enumerate(old[i])], magic=1, codec=None,
+                now_ms=NOW_MS))
+        p = p13_producer(kit, cluster.bootstrap_servers(), backend,
+                         {"linger.ms": 1000, "batch.num.messages": run})
+        p6_produce(p, "p13-mixed", keys, new, ts0=NOW_MS)
+        c = p13_consumer(kit, cluster.bootstrap_servers(), backend,
+                         "p13-mixed", {})
+        legacy = [0]
+        submit = c._rk.codec_provider.crc32_submit
+
+        def counting_submit(bufs, *a, **kw):
+            legacy[0] += len(bufs)
+            return submit(bufs, *a, **kw)
+        c._rk.codec_provider.crc32_submit = counting_submit
+        crc.launches = 0
+        port_kafka.verify_crc_v2 = counting
+        vals = [old[i] + new[i] for i in range(parts)]
+        p6_consume(c, "p13-mixed", keys, vals)
+        p13_check(legacy[0] >= parts * run and inline[0] >= parts,
+                  f"13c mixed: {legacy[0]} legacy regions through "
+                  f"crc32_submit, {inline[0]} v2 batches verified inline")
+        p13_check(device == "cpu" or crc.launches > 0,
+                  "13c mixed: no crc_rows launch")
+        p13_engines_clean([c], False, "13c mixed consumer")
+    finally:
+        port_kafka.verify_crc_v2 = verify
+        for cl in (c, p):
+            if cl is not None:
+                cl.close()
+        cluster.stop()
+    return {"records": parts * 2 * run, "legacy": legacy[0],
+            "inline": inline[0], "crc_rows": crc.launches}
+
+
+def p13_faults(kit, backend: dict, tag: str, extra: dict, parts: int,
+               per: int, device: str, smi: str) -> dict:
+    """13d, one leg: the idempotent GPU producer's link throttled to
+    30 kB/s mid-ProduceRequest, then every connection killed: each
+    record stored once, in order, exact, every retried batch rebuilt
+    through the device route; a check.crcs GPU consumer's connection
+    killed mid-fetch; then head-of-line blocking: one producer (one
+    engine) on two brokers, one of them 2,500 ms away."""
+    from librdkafka_tpu_torch.protocol.proto import ApiKey
+    card = device != "cpu"
+    dev = bool(extra)
+    keys, vals = p13_keys(parts), p13_values(parts, per)
+    topic = f"p13-net-{tag}"
+    cluster = kit.MockCluster(num_brokers=1, topics={topic: parts,
+                                                     "p13-warm": 1})
+    em = kit.Sockem()
+    cem = kit.Sockem()
+    retries = [0]
+    requeue = kit.Toppar.enqueue_retry_batch
+
+    def counting(self, msgs):
+        retries[0] += 1
+        return requeue(self, msgs)
+    p = c = None
+    try:
+        p = p13_producer(kit, cluster.bootstrap_servers(),
+                         {**backend, **extra},
+                         {"connect_cb": em.connect_cb,
+                          "retry.backoff.ms": 50,
+                          "message.send.max.retries": 20,
+                          "message.timeout.ms": 120000})
+        p.produce("p13-warm", value=b"warm", partition=0)
+        p13_check(p.flush(30) == 0, f"13d {tag}: warm-up flush")
+        prov = p._rk.codec_provider
+        submitted = [0]
+        if dev:
+            submit_lz4 = prov.compress_submit
+
+            def recording(codec, bufs, *a, **kw):
+                submitted[0] += len(bufs) if codec == "lz4" else 0
+                return submit_lz4(codec, bufs, *a, **kw)
+            prov.compress_submit = recording
+        else:
+            submit_crc = prov.crc32c_submit
+
+            def recording(bufs, *a, **kw):
+                submitted[0] += len(bufs)
+                return submit_crc(bufs, *a, **kw)
+            prov.crc32c_submit = recording
+        kit.Toppar.enqueue_retry_batch = counting
+        crc.launches = 0
+        lz4.launches = 0
+        em.set(rate_bps=30000)
+        t0 = time.perf_counter()
+        n = parts * per
+        for j in range(per):
+            for i in range(parts):
+                p.produce(topic, value=vals[i][j], key=keys[i], partition=i)
+        # a ProduceRequest written to the throttled socket is mid-transfer
+        p11_wait(p, lambda: any(r.api == ApiKey.Produce
+                                for b in list(p._rk.brokers.values())
+                                for r in list(b.waitresp.values())),
+                 f"13d {tag}: a ProduceRequest on the wire")
+        killed = em.kill_all()
+        em.set(rate_bps=0)
+        p13_check(p.flush(300) == 0, f"13d {tag}: flush() did not drain")
+        secs = time.perf_counter() - t0
+        kit.Toppar.enqueue_retry_batch = requeue
+        prod = {"crc_rows": crc.launches, "lz4_rows": lz4.launches}
+        nbatch = p6_check_stored(cluster, topic, keys, vals, det=dev)
+        p13_check(killed >= 1 and retries[0] >= 1,
+                  f"13d {tag}: killed {killed} connections, {retries[0]} "
+                  "batches requeued")
+        p13_check(submitted[0] >= nbatch + retries[0],
+                  f"13d {tag}: {submitted[0]} batches through the device "
+                  f"route, fewer than {nbatch} stored + {retries[0]} retried")
+        p13_check(not card or prod["lz4_rows" if dev else "crc_rows"] > 0,
+                  f"13d {tag}: producer kernel launches {prod}")
+        p13_engines_clean([p], dev, f"13d {tag} producer")
+        # a twelfth of the topic fetched ahead: the kill lands with
+        # fetches still to come
+        c = p13_consumer(kit, cluster.bootstrap_servers(), backend,
+                         f"p13-net-{tag}",
+                         {"connect_cb": cem.connect_cb,
+                          "queued.max.messages.kbytes":
+                          max(64, n * VALUE_SIZE // 1024 // 12)})
+        crc.launches = 0
+        dropped = []
+        rate = p6_consume(c, topic, keys, vals,
+                           kill=lambda: dropped.append(cem.kill_all()))
+        p13_check(dropped and dropped[0] >= 1, f"13d {tag}: no consumer "
+                  "connection to kill")
+        p13_check(eos_engine(c).stats["launches"] > 0 and
+                  (not card or crc.launches > 0),
+                  f"13d {tag}: the consumer made no CRC launch")
+        p13_engines_clean([c], False, f"13d {tag} consumer")
+        cons = crc.launches
+    finally:
+        kit.Toppar.enqueue_retry_batch = requeue
+        for cl in (c, p):
+            if cl is not None:
+                cl.close()
+        cluster.stop()
+    holb = p13_holb(kit, {**backend, **extra}, tag, device)
+    print(f"phase 13d, leg {tag} "
+          f"({'gpu.compress.device' if dev else 'CRC tickets'}): link at "
+          f"30 kB/s mid-ProduceRequest, {killed} connections killed: "
+          f"{n} records x {VALUE_SIZE} B stored once, in order, in "
+          f"{nbatch} exact batches after {retries[0]} requeued batches, "
+          f"{submitted[0]} batches through the device route "
+          f"({secs:.3f} s to flush); consumer connection killed mid-fetch "
+          f"({dropped[0]}), every record read once in order at "
+          f"{rate:.1f} msgs/s [{smi}]")
+    print(f"  HOLB: fast broker's 20 DRs in {holb['max']:.3f} s (p99 "
+          f"{holb['p99']:.3f} s), slow broker's from {holb['slow']:.3f} s; "
+          f"launches crc_rows {prod['crc_rows'] + cons + holb['crc_rows']}, "
+          f"lz4_rows {prod['lz4_rows'] + holb['lz4_rows']} [{smi}]")
+    return {"crc_rows": prod["crc_rows"] + cons + holb["crc_rows"],
+            "lz4_rows": prod["lz4_rows"] + holb["lz4_rows"]}
+
+
+def p13_holb(kit, backend: dict, tag: str, device: str) -> dict:
+    """0093's head-of-line blocking on one GPU producer (one engine for
+    both broker threads): broker 1 at 2,500 ms RTT, broker 2's 20 DRs
+    under 2.0 s."""
+    cluster = kit.MockCluster(num_brokers=2, topics={"holb": 2})
+    cluster.set_partition_leader("holb", 0, 1)
+    cluster.set_partition_leader("holb", 1, 2)
+    fast, slow = [], []
+    p = None
+    try:
+        p = p13_producer(kit, cluster.bootstrap_servers(), backend,
+                         {"linger.ms": 2})
+        for q in (0, 1):
+            p.produce("holb", value=b"w%d" % q * 64, partition=q)
+        p13_check(p.flush(30) == 0, f"13d {tag} HOLB: warm-up flush")
+        launch0 = eos_engine(p).stats["launches"]
+        comp0 = eos_engine(p).compress_stats["launches"]
+        crc.launches = 0
+        lz4.launches = 0
+        cluster.set_rtt(1, 2500)
+        t0 = time.monotonic()
+        for i in range(20):
+            p.produce("holb", value=b"s%02d" % i * 64, partition=0,
+                      on_delivery=lambda e, m: slow.append(
+                          time.monotonic() - t0))
+            p.produce("holb", value=b"f%02d" % i * 64, partition=1,
+                      on_delivery=lambda e, m: fast.append(
+                          time.monotonic() - t0))
+        deadline = time.monotonic() + 10
+        while len(fast) < 20 and time.monotonic() < deadline:
+            p.poll(0.01)
+        p13_check(len(fast) == 20 and max(fast) < 2.0,
+                  f"13d {tag} HOLB: fast DRs {len(fast)} of 20, last at "
+                  f"{max(fast, default=-1):.3f} s (limit 2.0)")
+        p13_check(p.flush(30) == 0, f"13d {tag} HOLB: flush()")
+        deadline = time.monotonic() + 5
+        while len(slow) < 20 and time.monotonic() < deadline:
+            p.poll(0.05)
+        p13_check(len(slow) == 20 and min(slow) >= 2.0,
+                  f"13d {tag} HOLB: slow DRs {len(slow)}, first at "
+                  f"{min(slow, default=-1):.3f} s")
+        eng = eos_engine(p)
+        p13_check(eng.stats["launches"] - launch0 > 0
+                  or eng.compress_stats["launches"] - comp0 > 0,
+                  f"13d {tag} HOLB: the producer's engine launched nothing")
+        p13_engines_clean([p], "gpu.compress.device" in backend,
+                          f"13d {tag} HOLB")
+        counts = {"crc_rows": crc.launches, "lz4_rows": lz4.launches}
+    finally:
+        if p is not None:
+            p.close()
+        cluster.stop()
+    return {"max": max(fast), "p99": float(np.percentile(fast, 99)),
+            "slow": min(slow), **counts}
+
+
+def phase_planes(smi: str, parts: int = PARTITIONS,
+                 per_part: int = P13_PER_PART, device: str = "cuda") -> dict:
+    """Phase 13: the client's TLS, SASL, admin, legacy-broker and
+    socket-fault planes on the card (13a-13d).  Returns its launches."""
+    import tempfile
+    t0 = time.perf_counter()
+    kit = p13_kit()
+    backend = {"compression.backend": "gpu", "gpu.device": device, **P6_GPU}
+    total = {"crc_rows": 0, "lz4_rows": 0}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+    # a client thread that dies of an exception fails the phase (a dead
+    # broker thread would pass "no thread left")
+    died: list = []
+    hook = threading.excepthook
+
+    def record(args):
+        died.append(f"{args.thread.name}: {args.exc_type.__name__}")
+        hook(args)
+    threading.excepthook = record
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            certs = p13_certs(tmp)
+            for tag, extra in P13_LEGS:
+                leg = p13_tls(kit, certs, backend, tag, extra, parts,
+                              per_part, device, smi, refuse=tag == "a")
+                try:
+                    add(leg["counts"])
+                    if tag == "a":
+                        add(p13_admin(kit, leg["cluster"], certs, backend,
+                                      parts, per_part, device, smi))
+                finally:
+                    leg["cluster"].stop()
+        add(p13_legacy(kit, backend, parts, device, smi))
+        for tag, extra in P13_LEGS:
+            add(p13_faults(kit, backend, tag, extra, parts, per_part, device,
+                           smi))
+    finally:
+        threading.excepthook = hook
+    p13_check(not died, f"phase 13: threads died of exceptions: {died}")
+    secs = time.perf_counter() - t0
+    check(secs <= P13_LIMIT_S, f"phase 13 took {secs:.3f} s, over its "
+          f"{P13_LIMIT_S} s")
+    print(f"phase 13: ok ({secs:.3f} s: 13a TLS + SASL on two legs, 13b "
+          f"admin, 13c legacy brokers and a mixed log, 13d socket faults "
+          f"on two legs; {parts} x {per_part} x {VALUE_SIZE} B; launches "
+          f"crc_rows {total['crc_rows']}, lz4_rows {total['lz4_rows']}) "
+          f"[{smi}]")
+    return total
+
+
 def kernel_line(main: dict, timing: dict, max_err: int) -> dict:
     """The crc_rows entry at the main path's shape (its produce regions
     as packed segments)."""
@@ -4889,15 +5802,17 @@ def main() -> None:
     eos = phase_eos(dev["smi"])
     api = phase_api(dev["smi"])
     obs = phase_obs(dev["smi"])
+    planes = phase_planes(dev["smi"])
     cnt = mp["counts"]
     main_path["launches"] += (engine["launches"] + client["crc_rows"]
                               + cnt["crc_rows"] + robust["crc_rows"]
                               + capi["crc_rows"] + eos["crc_rows"]
-                              + api["crc_rows"] + obs["crc_rows"])
+                              + api["crc_rows"] + obs["crc_rows"]
+                              + planes["crc_rows"])
     comp["launches"] += (client["lz4_rows"] + cnt["lz4_rows"]
                          + robust["lz4_rows"] + capi["lz4_rows"]
                          + eos["lz4_rows"] + api["lz4_rows"]
-                         + obs["lz4_rows"])
+                         + obs["lz4_rows"] + planes["lz4_rows"])
     line = kernel_line(main_path, timing, max(max_err, engine["max_err"]))
     lz4_line = {"name": "lz4_rows", "route": "cuda",
                 "source": "librdkafka_tpu_torch/csrc/lz4_rows.cu",

@@ -1020,10 +1020,13 @@ class Broker:
         # will be evicted); renegotiate from epoch 0 after reconnect
         self._fetch_session.reset("disconnect")
         self._tls_handshaking = False
-        # fail all in-flight + queued requests (callers decide on retry)
-        for req in list(self.waitresp.values()):
-            self._req_fail(req, err)
+        # fail all in-flight + queued requests (callers decide on retry);
+        # waitresp is emptied first: a callback may disconnect again
+        # (a SASL step's failure does) and must find nothing left to fail
+        waiting = list(self.waitresp.values())
         self.waitresp.clear()
+        for req in waiting:
+            self._req_fail(req, err)
         outq, self.outq = self.outq, deque()
         for req in outq:
             self._req_fail(req, err)

@@ -39,6 +39,62 @@ _TOPIC_CHARS = frozenset(
     "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789._-")
 
 
+def _renumber_legacy(msgset: bytes, first: int) -> tuple[bytes, int]:
+    """``msgset`` with its messages at offsets first, first + 1, ...
+    (the offset field lies outside each message's CRC); (bytes, count)."""
+    out = bytearray(msgset)
+    n, off = 0, 0
+    while off + 12 <= len(out):
+        size = struct.unpack_from(">i", out, off + 8)[0]
+        if off + 12 + size > len(out):
+            break
+        struct.pack_into(">q", out, off, first + n)
+        n += 1
+        off += 12 + size
+    return bytes(out), n
+
+
+def _assign_legacy_offsets(blob: bytes, base: int) -> tuple[bytes, int]:
+    """A produced MsgVer0/1 MessageSet with the offsets a broker assigns
+    from ``base`` (Kafka's log validator): each plain message its own;
+    a compression wrapper the offset of its last inner message, whose
+    inner offsets stay relative (0..n-1) in MsgVer1 and become absolute
+    in MsgVer0 (the inner set is then recompressed and the wrapper's CRC
+    recomputed).  A producer numbers every request from 0, so a set
+    stored verbatim would repeat offsets and count a wrapper as one
+    message.  Returns (bytes, messages)."""
+    from ..ops.cpu import CpuCodecProvider
+    codec_p = CpuCodecProvider()
+    out = bytearray()
+    n, off = 0, 0
+    while off + 12 <= len(blob):
+        size = struct.unpack_from(">i", blob, off + 8)[0]
+        if size < 6 or off + 12 + size > len(blob):
+            break                      # a partial trailing message
+        msg = blob[off + 12:off + 12 + size]     # crc .. value
+        off += 12 + size
+        magic, attrs = msg[4], msg[5]
+        codec = proto.CODEC_NAMES.get(attrs & proto.ATTR_CODEC_MASK)
+        if codec is None:
+            out += struct.pack(">qi", base + n, size) + msg
+            n += 1
+            continue
+        o = 6 + (8 if magic == 1 else 0)
+        klen = struct.unpack_from(">i", msg, o)[0]
+        o += 4 + max(klen, 0)
+        vlen = struct.unpack_from(">i", msg, o)[0]
+        value = msg[o + 4:o + 4 + vlen]
+        inner = codec_p.decompress_many(codec, [value])[0]
+        renumbered, k = _renumber_legacy(inner, 0 if magic == 1 else base + n)
+        if renumbered != inner:
+            value = codec_p.compress_many(codec, [renumbered])[0]
+            body = msg[4:o] + struct.pack(">i", len(value)) + value
+            msg = struct.pack(">I", zlib.crc32(body)) + body
+        out += struct.pack(">qi", base + n + k - 1, len(msg)) + msg
+        n += k
+    return bytes(out), max(n, 1)
+
+
 def _valid_topic_name(name: str) -> bool:
     """Kafka topic-name rules (broker-side validation the real cluster
     applies): 1-249 chars of [a-zA-Z0-9._-], not '.'/'..'."""
@@ -84,25 +140,15 @@ class MockPartition:
     def append(self, blob: bytes) -> int:
         """Append a produced MessageSet verbatim; returns assigned base
         offset. v2 blobs get their BaseOffset field patched (outside the
-        CRC'd region), exactly what a real broker does."""
+        CRC'd region), exactly what a real broker does; MsgVer0/1 sets
+        get the offsets a broker assigns (``_assign_legacy_offsets``)."""
         base = self.end_offset
-        count = 1
         if len(blob) >= proto.V2_HEADER_SIZE and blob[proto.V2_OF_Magic] == 2:
             blob = struct.pack(">q", base) + blob[8:]
             count = struct.unpack(
                 ">i", blob[proto.V2_OF_RecordCount:proto.V2_OF_RecordCount + 4])[0]
         else:
-            # legacy v0/v1: count messages by walking the set
-            count = 0
-            sl = Slice(blob)
-            while sl.remains() >= 12:
-                sl.skip(8)
-                sz = sl.read_i32()
-                if sl.remains() < sz:
-                    break
-                sl.skip(sz)
-                count += 1
-            count = max(count, 1)
+            blob, count = _assign_legacy_offsets(blob, base)
         self.log.append((base, blob))
         self.log_bytes += len(blob)
         self.end_offset = base + count
@@ -122,7 +168,7 @@ class MockPartition:
         out = bytearray()
         for base, blob in self.log:
             # include any blob whose range covers/starts-after the offset
-            if base + self._blob_count(blob) <= offset:
+            if self._blob_end(base, blob) <= offset:
                 continue
             if max_offset is not None and base >= max_offset:
                 break
@@ -132,11 +178,18 @@ class MockPartition:
         return bytes(out)
 
     @staticmethod
-    def _blob_count(blob: bytes) -> int:
+    def _blob_end(base: int, blob: bytes) -> int:
+        """The offset after the blob's last message."""
         if len(blob) >= proto.V2_HEADER_SIZE and blob[proto.V2_OF_Magic] == 2:
-            return struct.unpack(
+            return base + struct.unpack(
                 ">i", blob[proto.V2_OF_RecordCount:proto.V2_OF_RecordCount + 4])[0]
-        return 1
+        # MsgVer0/1: append() gave every message (a wrapper: its last
+        # inner message) its absolute offset
+        last, off = base, 0
+        while off + 12 <= len(blob):
+            last = struct.unpack_from(">q", blob, off)[0]
+            off += 12 + struct.unpack_from(">i", blob, off + 8)[0]
+        return last + 1
 
 
 @dataclass

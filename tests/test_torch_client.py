@@ -44,6 +44,7 @@ from librdkafka_tpu_torch.protocol.msgset import (MsgsetWriterV2, Record,
                                                   parse_records_v2,
                                                   verify_crc_v2)
 from librdkafka_tpu_torch.protocol.proto import OFFSET_BEGINNING, ApiKey
+from torch_leakguard import no_new_threads
 
 NOW_MS = 1_700_000_000_000
 
@@ -74,23 +75,20 @@ def port_conf(ref: dict, device: str = "cpu") -> dict:
 _PORT_THREADS = ("sockem-", "mock-cluster", "rdk:broker/", "gpu-codec-")
 
 
-def _leaked_threads() -> list[str]:
-    return [t.name for t in threading.enumerate()
-            if t.is_alive() and ("engine" in t.name
-                                 or t.name.startswith(_PORT_THREADS))]
+def guarded_thread(name: str) -> bool:
+    """An engine, sockem, mock or broker thread of the port."""
+    return "engine" in name or name.startswith(_PORT_THREADS)
 
 
 @pytest.fixture(autouse=True)
 def _port_leak_guard():
     """The conftest's leak contract for the port's own registries: no
-    engine, sockem, mock or broker thread outlives a test, no stats-emit
-    timer stays registered, and the port's tracer and metrics registry
-    end disabled and empty."""
-    yield
-    deadline = time.monotonic() + 5.0      # grace for in-progress close()
-    while _leaked_threads() and time.monotonic() < deadline:
-        time.sleep(0.05)
-    assert not _leaked_threads(), f"leaked threads: {_leaked_threads()}"
+    engine, sockem, mock or broker thread that the test started outlives
+    it (``torch_leakguard.no_new_threads``), no stats-emit timer stays
+    registered, and the port's tracer and metrics registry end disabled
+    and empty."""
+    with no_new_threads(guarded_thread):
+        yield
     from librdkafka_tpu_torch.client.stats import _ACTIVE_STATS_TIMERS
     from librdkafka_tpu_torch.obs import metrics, trace
     assert not _ACTIVE_STATS_TIMERS, "a port client's stats timer leaked"

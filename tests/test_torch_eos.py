@@ -22,7 +22,6 @@ the stored eos-out blobs, data and control batches, byte for byte.  The
 mocks write a control batch's timestamp from the wall clock, so that
 case pins both mocks' ``time.time``; no field is masked.
 """
-import threading
 import time
 from types import SimpleNamespace
 
@@ -36,6 +35,7 @@ from librdkafka_tpu.client.consumer import TopicPartition as RefTP
 from librdkafka_tpu.mock import cluster as ref_cluster
 from librdkafka_tpu_torch.mock import cluster as port_cluster
 from librdkafka_tpu_torch.protocol.msgset import iter_batches
+from torch_leakguard import no_new_threads
 
 PARTS, PER, TXN, ABORT_EVERY = 8, 100, 25, 3
 
@@ -49,18 +49,18 @@ REF_TPU = {"compression.backend": "tpu", "tpu.governor": False,
 LEGS = {"a": {}, "b": {"gpu.compress.device": True}}
 
 
+def guarded_thread(name: str) -> bool:
+    """A copier, engine or broker thread: none that a test starts may
+    outlive it."""
+    return "engine" in name or name.startswith(("eos-copier", "rdk:broker/"))
+
+
 @pytest.fixture(autouse=True)
 def _no_copier_left():
-    """No copier, engine or port broker thread outlives a test."""
-    yield
-    def left():
-        return [t.name for t in threading.enumerate() if t.is_alive() and (
-            "engine" in t.name or t.name.startswith(("eos-copier",
-                                                     "rdk:broker/")))]
-    deadline = time.monotonic() + 5.0
-    while left() and time.monotonic() < deadline:
-        time.sleep(0.05)
-    assert not left(), left()
+    """No copier, engine or port broker thread that the test started
+    outlives it (``torch_leakguard.no_new_threads``)."""
+    with no_new_threads(guarded_thread):
+        yield
 
 
 def _values(parts=PARTS, per=PER, size=None):

@@ -795,3 +795,17 @@ def test_observability_traced_produce_on_card(card):
     assert all(e["args"]["route"] == "device" and e["args"]["device"] == 0
                and e["args"]["sharded"] is False for e in spans)
     assert not trace.enabled and trace.active_ring_count() == 0
+
+
+# ------------------------------------------------------------ planes --
+
+def test_tls_admin_legacy_and_socket_faults_on_card(card):
+    """chip_smoke.py phase 13 at 8 partitions x 400 records on the card:
+    sasl_ssl blobs equal the plaintext round's, the refusals, the admin
+    plane with a topic that grows under the producer, legacy brokers and
+    a mixed log, the socket faults and head-of-line blocking, on the CRC
+    tickets and the device compress route.  Any check that fails
+    raises or exits non-zero."""
+    import chip_smoke
+    out = chip_smoke.phase_planes("card test", parts=8, per_part=400)
+    assert out["crc_rows"] > 0 and out["lz4_rows"] > 0
