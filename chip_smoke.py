@@ -248,7 +248,48 @@ stored once, in order, exact, every retried batch rebuilt through the
 device route; a check.crcs consumer's connection killed mid-fetch;
 head-of-line blocking on one producer over two brokers, one at 2,500 ms
 RTT (the fast broker's 20 DRs under 2.0 s, p99 printed).  Phase 13 fails
-past 90 s.  Any mismatch exits non-zero.
+past 90 s.  Phase 14 holds the producer's latency path, every
+compression codec and the client under load on the card, through
+functions that take a client kit like phases 10-13: (a) test_0055's
+three cases with its own bounds (the least linger.ms 0 delivery under
+150 ms; flush() under linger.ms 5,000 in under 2 s, the 50 lingering
+records one stored batch; int_latency's max at least 250,000 us at
+linger.ms 300), then 500 single 1 KB lz4 records at linger.ms 0 and
+acks=all to one partition, each awaited, on four legs: the CPU provider,
+the GPU provider on its governed defaults, leg a (CRC tickets, governor
+off, quorum 1, warm) and leg b (leg a with gpu.compress.device=true);
+produce->DR p50, p99 and max and each leg's routes (crc_rows / lz4_rows
+launches, cpu_fallback_jobs, fanin_waits, fanin_skips) are printed;
+legs a and b must make one launch a batch and take no CPU route, every
+stored CRC must equal the native crc32c, the governed leg's routes are
+printed as they fall; (b) one idempotent GPU Producer a leg (legs a and
+b), global codec lz4 with topic-scope overrides none, gzip, snappy and
+zstd and an lz4 topic that inherits, 16 partitions x 1,600 x 1 KB a
+topic, fixed timestamps, batches cut by count: each stored batch's codec
+bits its topic's, its CRC the native crc32c, the blobs equal byte for
+byte to the same round through the CPU provider (the deterministic
+encoder's round on leg b's lz4 topic), every batch's CRC region in the
+producer's tickets (leg b: the lz4 batches through lz4_rows instead),
+then a check.crcs GPU Consumer reads every record in order with a
+verify region a stored batch, and a flipped byte in a gzip and in a
+zstd batch reaches it as _BAD_MSG; whether zstandard imports is printed,
+and without it the zstd topic is left out; (c) 4 application threads x
+25,600 x 1 KB into one idempotent lz4 GPU Producer over 64 partitions on
+2 brokers, every record exactly once and msg_cnt == msg_bytes == 0
+after flush(), then the same while broker 1 is killed with a
+ProduceRequest in flight and restarted (requeued batches counted and
+rebuilt through the device route), two check.crcs GPU consumers in one
+group, the second joining halfway (none lost, duplicates printed),
+test_0112's backpressure on sockem at 24 KB/s (three bursts at each
+threshold, interleaved: threshold 1 stores fewer batches in all than
+1,000,000, each through a CRC ticket) and
+message.copy.max.bytes 64 (a 10 B and a 4 KB value in one batch, one
+CRC region); (d) test_0118's behaviours across the codec seam on leg a:
+acks 0, 1 and -1, null key and value, MSG_SIZE_TOO_LARGE, an unknown
+partition, the ut_handle_ProduceResponse retry rebuilt through the CRC
+ticket, reconsume after seek through the verify tickets.  Phase 14
+fails past 90 s or if a thread dies of an exception.  Any mismatch exits
+non-zero.
 
 The last two lines of standard output are a ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -1201,6 +1242,11 @@ class DetProvider(CpuCodecProvider):
             return native.lz4f_compress_many([bytes(b) for b in bufs],
                                              deterministic=True)
         return super().compress_many(codec, bufs, level)
+
+    def fused_codec_id(self, codec):
+        # the fused native lz4 builder is the fast parse: keep lz4 on
+        # compress_many above
+        return None if codec == "lz4" else super().fused_codec_id(codec)
 
 
 def det_frames(bufs) -> list[bytes]:
@@ -5769,6 +5815,1032 @@ def phase_planes(smi: str, parts: int = PARTITIONS,
     return total
 
 
+# --------------------------------------------------------------- phase 14 --
+
+P14_LIMIT_S = 90
+#: 14a: single 1 KB records at linger.ms 0, acks=all, each awaited
+P14_LAT_N = 500
+#: 14b: the topic-scope codecs (one topic each; the lz4 topic inherits
+#: the global lz4), partitions a topic, records a partition, and the
+#: batch cut (with linger.ms 1,000 every batch is cut by count, so the
+#: blobs of two rounds compare)
+P14_CODECS = ("none", "gzip", "snappy", "lz4", "zstd")
+P14_CODEC_PARTS, P14_CODEC_PER, P14_BATCH = 16, 1600, 400
+#: 14c: application threads, records a thread, partitions, brokers
+P14_THREADS, P14_THREAD_PER, P14_LOAD_PARTS = 4, 25600, 64
+P14_LEGS = (("a", {}), ("b", {"gpu.compress.device": True}))
+
+
+class LoadError(RuntimeError):
+    """Phase 14 (latency, codecs, the client under load) broke one of its
+    checks."""
+
+
+def p14_check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise LoadError(msg)
+
+
+def p14_zstd() -> str | None:
+    """The zstandard module's version, or None where it does not import
+    (the zstd codec needs it in both packages)."""
+    try:
+        import zstandard
+    except ImportError:
+        return None
+    return zstandard.__version__
+
+
+def p14_engine_delta(client, before: dict | None) -> dict:
+    """The routes a client's engine took since ``before`` (its
+    eos_snapshot): launches, CPU routes, fan-in waits and skips."""
+    snap = eos_snapshot(eos_engine(client))
+    if snap is None:
+        return {}
+    keys = ("launches", "cpu_fallback_jobs", "routed_cpu_jobs",
+            "warmup_miss_jobs", "fanin_waits", "fanin_skips")
+    out = {k: snap["stats"][k] - (before["stats"][k] if before else 0)
+           for k in keys}
+    out["compress.launches"] = (snap["compress"]["launches"] -
+                                (before["compress"]["launches"]
+                                 if before else 0))
+    return out
+
+
+def p14_batches(cluster, topic: str, parts: int) -> list:
+    """Every stored batch of ``topic``, per partition: (info, records
+    payload decompressed, full batch); each batch's CRC must equal the
+    native crc32c of its region."""
+    from librdkafka_tpu_torch.protocol.msgset import iter_batches
+    dec = CpuCodecProvider()
+    out = []
+    for i in range(parts):
+        rows = []
+        for _base, blob in cluster.partition(topic, i).log:
+            for info, payload, full in iter_batches(blob):
+                rows.append((info, payload, full))
+        crcs = native.crc32c_many([bytes(f[V2_OF_Attributes:])
+                                   for _i, _p, f in rows]).tolist()
+        p14_check(crcs == [inf.crc for inf, _p, _f in rows],
+                  f"{topic}[{i}]: a stored CRC != the native crc32c")
+        out.append([(inf, dec.decompress_many(inf.codec, [bytes(pl)])[0]
+                     if inf.codec else bytes(pl), full)
+                    for inf, pl, full in rows])
+    return out
+
+
+def p14_values(batches) -> list:
+    """The (key, value) pairs of ``p14_batches``' output, per partition."""
+    from librdkafka_tpu_torch.protocol.msgset import parse_records_v2
+    return [[(r.key, r.value) for info, raw, _f in part
+             for r in parse_records_v2(info, raw)] for part in batches]
+
+
+def p14_wrap_submit(prov, attr: str, count) -> None:
+    """Wrap ``prov.<attr>`` (crc32c_submit or compress_submit) so that
+    ``count(args)`` sees every call's arguments first."""
+    submit = getattr(prov, attr, None)
+    if submit is None:
+        return
+
+    def wrapped(*a, **kw):
+        count(*a)
+        return submit(*a, **kw)
+    setattr(prov, attr, wrapped)
+
+
+def p14_region_codecs(prov) -> dict:
+    """Count the v2 batch regions ``prov``'s CRC tickets carry, by the
+    codec bits of their attributes (a region starts at them)."""
+    from librdkafka_tpu_torch.protocol.proto import (ATTR_CODEC_MASK,
+                                                    CODEC_NAMES)
+    seen: dict = {}
+
+    def count(bufs, *_):
+        for b in bufs:
+            c = CODEC_NAMES.get(int.from_bytes(bytes(b[:2]), "big")
+                                & ATTR_CODEC_MASK, "none")
+            seen[c] = seen.get(c, 0) + 1
+    p14_wrap_submit(prov, "crc32c_submit", count)
+    return seen
+
+
+# ------------------------------------------------------------------ 14a --
+
+def p14_deliver_one(p, topic: str, value: bytes, timeout: float = 10.0,
+                    **kw) -> float:
+    """0055's _deliver_one: seconds from produce() to the record's DR."""
+    done: list = []
+    t0 = time.monotonic()
+    p.produce(topic, value=value, partition=0,
+              on_delivery=lambda e, m: done.append((time.monotonic(), e)),
+              **kw)
+    deadline = t0 + timeout
+    while not done and time.monotonic() < deadline:
+        p.poll(0.001)
+    p14_check(bool(done), f"{topic}: a record was never delivered")
+    p14_check(done[0][1] is None, f"{topic}: DR error {done[0][1]}")
+    return done[0][0] - t0
+
+
+def p14_high_linger(kit, cluster, conf: dict, tag: str) -> float:
+    """0055's second case: flush() overrides linger.ms 5,000."""
+    topic = f"p14-high-{tag}"
+    p = kit.Producer({"bootstrap.servers": cluster.bootstrap_servers(),
+                      "linger.ms": 5000, "batch.num.messages": 10000,
+                      **conf})
+    try:
+        eos_warm(p)
+        p.produce(topic, value=b"warm", partition=0)
+        p14_check(p.flush(10.0) == 0, f"14a {tag}: warm flush")
+        for i in range(50):
+            p.produce(topic, value=b"m%d" % i, partition=0)
+        time.sleep(0.4)
+        part = cluster.partition(topic, 0)
+        p14_check(part.end_offset == 1, f"14a {tag}: a lingering record "
+                  f"was sent before linger.ms (end offset {part.end_offset})")
+        t0 = time.monotonic()
+        p14_check(p.flush(10.0) == 0, f"14a {tag}: flush under linger")
+        secs = time.monotonic() - t0
+    finally:
+        p.close()
+    p14_check(secs < 2.0, f"14a {tag}: flush() waited {secs:.3f} s for "
+              "linger.ms (0055's bound 2 s)")
+    p14_check(part.end_offset == 51 and len(part.log) == 2,
+              f"14a {tag}: the 50 lingering records are not one batch "
+              f"(end offset {part.end_offset}, {len(part.log)} blobs)")
+    return secs
+
+
+def p14_int_latency(kit, cluster, conf: dict, tag: str) -> float:
+    """0055's third case: int_latency's max (us) at linger.ms 300."""
+    topic = f"p14-il-{tag}"
+    blobs: list = []
+    p = kit.Producer({"bootstrap.servers": cluster.bootstrap_servers(),
+                      "linger.ms": 300, "statistics.interval.ms": 200,
+                      "stats_cb": lambda js: blobs.append(json.loads(js)),
+                      **conf})
+    try:
+        eos_warm(p)
+        blobs.clear()
+        for i in range(20):
+            p.produce(topic, value=b"s%d" % i, partition=0)
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline:
+            p.poll(0.1)
+            if any(b["int_latency"]["cnt"] for b in blobs):
+                break
+    finally:
+        p.close()
+    il = next((b["int_latency"] for b in blobs if b["int_latency"]["cnt"]),
+              None)
+    p14_check(il is not None and il["max"] >= 250_000,
+              f"14a {tag}: int_latency {il}, max not >= 250,000 us (0055)")
+    return il["max"]
+
+
+def p14_latency_leg(kit, cluster, tag: str, conf: dict, n: int, card: bool,
+                    gated: bool) -> dict:
+    """14a, one leg: 0055's three cases, then ``n`` single 1 KB records
+    at linger.ms 0 and acks=all to one partition, each awaited; the
+    produce -> DR latencies and the routes the engine took."""
+    low = []
+    p = kit.Producer({"bootstrap.servers": cluster.bootstrap_servers(),
+                      "linger.ms": 0, "acks": -1,
+                      "compression.codec": "lz4", **conf})
+    topic = f"p14-lat-{tag}"
+    try:
+        eos_warm(p)
+        p14_deliver_one(p, f"p14-low-{tag}", b"lat")   # the connection
+        low = [p14_deliver_one(p, f"p14-low-{tag}", b"lat")
+               for _ in range(5)]
+        p14_deliver_one(p, topic, b"w" * VALUE_SIZE)   # topic's metadata
+        base = cluster.partition(topic, 0).end_offset
+        vals = payloads(n, VALUE_SIZE)
+        before = eos_snapshot(eos_engine(p))
+        crc.launches = 0
+        lz4.launches = 0
+        lat = [p14_deliver_one(p, topic, v) for v in vals]
+        counts = {"crc_rows": crc.launches, "lz4_rows": lz4.launches}
+        routes = p14_engine_delta(p, before)
+    finally:
+        p.close()
+    p14_check(min(low) < 0.15, f"14a {tag}: the least linger.ms=0 "
+              f"delivery took {min(low) * 1000:.1f} ms, not under 150 ms "
+              "(0055)")
+    batches = p14_batches(cluster, topic, 1)[0][base:]
+    got = [v for part in p14_values([batches]) for _k, v in part]
+    p14_check(got == vals, f"14a {tag}: stored records != produced")
+    nb = len(batches)
+    if gated:
+        dev = conf.get("gpu.compress.device", False)
+        p14_check(nb == n, f"14a {tag}: {nb} batches for {n} awaited "
+                  "records")
+        want = ({"launches": 0, "compress.launches": nb} if dev
+                else {"launches": nb, "compress.launches": 0})
+        p14_check({k: routes[k] for k in want} == want,
+                  f"14a {tag}: engine routes {routes}, not one launch a "
+                  f"batch ({nb} batches)")
+        p14_check(not any(routes[k] for k in (
+            "cpu_fallback_jobs", "routed_cpu_jobs", "warmup_miss_jobs")),
+            f"14a {tag}: jobs on a CPU route: {routes}")
+        p11_no_cpu(eos_snapshot(eos_engine(p)), f"14a {tag}", dev)
+        if card:
+            want = ({"crc_rows": 0, "lz4_rows": nb} if dev
+                    else {"crc_rows": nb, "lz4_rows": 0})
+            p14_check(counts == want, f"14a {tag}: kernel launches "
+                      f"{counts}, not {want}")
+    ms = np.array(lat) * 1000.0
+    return {"low_s": min(low), "p50": float(np.percentile(ms, 50)),
+            "p99": float(np.percentile(ms, 99)), "max": float(ms.max()),
+            "batches": nb, "routes": routes, "counts": counts}
+
+
+def p14_latency(kit, legs, n: int, device: str, smi: str) -> dict:
+    """14a: 0055 on every leg (``legs``: (tag, producer conf, gated)),
+    then the linger-0 run.  Returns each leg's readings and the kernel
+    launches of the gated legs."""
+    card = device != "cpu"
+    out, total = {}, {"crc_rows": 0, "lz4_rows": 0}
+    for tag, conf, gated in legs:
+        cluster = kit.MockCluster(num_brokers=1, topics={
+            f"p14-{k}-{tag}": 1 for k in ("low", "high", "il", "lat")})
+        try:
+            r = p14_latency_leg(kit, cluster, tag, conf, n, card, gated)
+            r["flush_s"] = p14_high_linger(kit, cluster, conf, tag)
+            r["int_latency_max_us"] = p14_int_latency(kit, cluster, conf,
+                                                      tag)
+        finally:
+            cluster.stop()
+        for k in total:
+            total[k] += r["counts"][k]
+        out[tag] = r
+        rt = r["routes"]
+        print(f"phase 14a, leg {tag}: 0055 least linger-0 delivery "
+              f"{r['low_s'] * 1000:.3f} ms (< 150), flush under linger.ms "
+              f"5000 {r['flush_s']:.3f} s (< 2, 50 records one batch), "
+              f"int_latency max {r['int_latency_max_us']:.0f} us (>= "
+              f"250,000); {n} x {VALUE_SIZE} B at linger.ms 0, acks=all, "
+              f"each awaited: produce->DR p50 {r['p50']:.3f} ms, p99 "
+              f"{r['p99']:.3f} ms, max {r['max']:.3f} ms; {r['batches']} "
+              f"batches, CRCs exact [{smi}]")
+        print(f"  routes: crc_rows {r['counts']['crc_rows']}, lz4_rows "
+              f"{r['counts']['lz4_rows']}, engine "
+              + (", ".join(f"{k} {v}" for k, v in rt.items()) if rt
+                 else "none (CPU provider)")
+              + ("" if gated else " (not gated: printed as they fall)"))
+    out["counts"] = total
+    return out
+
+
+# ------------------------------------------------------------------ 14b --
+
+def p14_codec_round(kit, cluster, conf: dict, codecs, keys, vals,
+                    provider=None) -> dict:
+    """One Producer (global codec lz4; topic p14-<codec> overrides it,
+    the lz4 topic inherits) sends ``vals[i][j]`` to partition i of every
+    codec's topic, the topics interleaved, with fixed timestamps and
+    batches cut by count, then flush().  ``provider`` replaces the
+    client's codec provider before the first record (the deterministic
+    oracle).  Returns the producer's CRC-ticket regions by codec, its
+    compress submissions and its engine's routes."""
+    p = kit.Producer({"bootstrap.servers": cluster.bootstrap_servers(),
+                      "enable.idempotence": True, "compression.codec": "lz4",
+                      "linger.ms": 1000, "batch.num.messages": P14_BATCH,
+                      "queue.buffering.max.messages": 1_000_000, **conf})
+    try:
+        if provider is not None:
+            p._rk.codec_provider = provider
+        eos_warm(p)
+        for c in codecs:
+            p.set_topic_conf(f"p14-{c}", {"compression.codec":
+                                          "inherit" if c == "lz4" else c})
+        prov = p._rk.codec_provider
+        regions = p14_region_codecs(prov)
+        comp = {}
+        p14_wrap_submit(prov, "compress_submit", lambda codec, bufs, *_:
+                        comp.__setitem__(codec, comp.get(codec, 0)
+                                         + len(bufs)))
+        before = eos_snapshot(eos_engine(p))
+        produce = p.produce
+        t0 = time.perf_counter()
+        for j in range(len(vals[0])):
+            for c in codecs:
+                topic = f"p14-{c}"
+                for i in range(len(vals)):
+                    produce(topic, value=vals[i][j], key=keys[i],
+                            partition=i, timestamp=NOW_MS + j)
+        p14_check(p.flush(300) == 0, "14b: flush() did not drain")
+        secs = time.perf_counter() - t0
+        routes = p14_engine_delta(p, before)
+        snap = eos_snapshot(eos_engine(p))
+    finally:
+        p.close()
+    return {"regions": regions, "compress": comp, "routes": routes,
+            "snap": snap, "secs": secs}
+
+
+def p14_corrupt(kit, cluster, p, c, errs: list, codec: str,
+                tag: str) -> None:
+    """A ``codec`` batch with one byte flipped reaches the check.crcs
+    consumer as _BAD_MSG and delivers nothing."""
+    topic = f"p14-bad-{codec}-{tag}"
+    p.set_topic_conf(topic, {"compression.codec": codec})
+    for i in range(10):
+        p.produce(topic, value=b"corrupt-%02d " % i * 40, partition=0)
+    p14_check(p.flush(60) == 0, f"{topic}: flush() did not drain")
+    part = cluster.partition(topic, 0)
+    base, blob = part.log[0]
+    p14_check(int.from_bytes(blob[V2_OF_Attributes:V2_OF_Attributes + 2],
+                             "big") & 7 == {"gzip": 1, "zstd": 4}[codec],
+              f"{topic}: the batch to corrupt is not {codec}")
+    bad = bytearray(blob)
+    bad[-5] ^= 0xFF
+    part.log[0] = (base, bytes(bad))
+    errs.clear()
+    c.assign([kit.TopicPartition(topic, 0, OFFSET_BEGINNING)])
+    deadline = time.monotonic() + 30
+    while (not any(e.code == kit.Err._BAD_MSG for e in errs)
+           and time.monotonic() < deadline):
+        m = c.poll(0.2)
+        p14_check(m is None or m.error is not None,
+                  f"{topic}: the corrupted {codec} batch was delivered")
+    p14_check(any(e.code == kit.Err._BAD_MSG for e in errs),
+              f"{topic}: the consumer reported {errs}, not _BAD_MSG")
+    c.unassign()
+
+
+def p14_codecs(kit, backend: dict, legs, parts: int, per: int, device: str,
+               smi: str) -> dict:
+    """14b: the topic-scope codec matrix on each of ``legs`` ((tag,
+    extra) over ``backend``), held to the CPU provider's round byte for
+    byte (the deterministic encoder's on a compress-device leg's lz4
+    topic), CRCs exact, every batch through the leg's kernel, then read
+    back by a check.crcs GPU Consumer with two corrupted batches."""
+    card = device != "cpu"
+    zstd = p14_zstd()
+    codecs = tuple(c for c in P14_CODECS if c != "zstd" or zstd)
+    print(f"phase 14b: import zstandard {zstd or 'fails: the zstd topic is '
+          'left out'}; codecs {', '.join(codecs)}")
+    keys, vals = p13_keys(parts), p13_values(parts, per)
+    topics = {f"p14-{c}": parts for c in codecs}
+
+    def blobs_of(conf, provider=None, only=codecs):
+        cl = kit.MockCluster(num_brokers=1, topics=topics,
+                             auto_create_topics=False)
+        try:
+            p14_codec_round(kit, cl, conf, only, keys, vals, provider)
+            return {c: p13_blobs(cl, f"p14-{c}") for c in only}
+        finally:
+            cl.stop()
+    ref = blobs_of({"compression.backend": "cpu"})
+    det = None
+    if any(extra.get("gpu.compress.device") for _t, extra in legs):
+        det = blobs_of({"compression.backend": "cpu"}, DetProvider(),
+                       ("lz4",))["lz4"]
+    total = {"crc_rows": 0, "lz4_rows": 0}
+    out = {}
+    for tag, extra in legs:
+        dev = bool(extra.get("gpu.compress.device"))
+        cluster = kit.MockCluster(num_brokers=1, topics={
+            **topics, f"p14-bad-gzip-{tag}": 1, f"p14-bad-zstd-{tag}": 1},
+            auto_create_topics=False)
+        c = None
+        try:
+            crc.launches = 0
+            lz4.launches = 0
+            r = p14_codec_round(kit, cluster, {**backend, **extra}, codecs,
+                                keys, vals)
+            prod = {"crc_rows": crc.launches, "lz4_rows": lz4.launches}
+            nb = {}
+            for cd in codecs:
+                t = f"p14-{cd}"
+                batches = p14_batches(cluster, t, parts)
+                want = None if cd == "none" else cd
+                p14_check(all(inf.codec == want for part in batches
+                              for inf, _r, _f in part),
+                          f"14b {tag} {t}: a batch's codec bits are not "
+                          f"{cd}'s")
+                p14_check(p14_values(batches) ==
+                          [[(k, v) for v in vals[i]]
+                           for i, k in enumerate(keys)],
+                          f"14b {tag} {t}: stored records != produced")
+                nb[cd] = sum(len(part) for part in batches)
+                oracle = det if dev and cd == "lz4" else ref[cd]
+                p14_check(p13_blobs(cluster, t) == oracle,
+                          f"14b {tag} {t}: the stored blobs != the CPU "
+                          f"provider's round"
+                          + (" (deterministic encoder)"
+                             if dev and cd == "lz4" else ""))
+            regions, comp = r["regions"], r["compress"]
+            want = {cd: n for cd, n in nb.items() if not (dev and cd == "lz4")}
+            p14_check(regions == want, f"14b {tag}: CRC-ticket regions by "
+                      f"codec {regions}, stored batches {nb}")
+            if dev:
+                p14_check(comp.get("lz4", 0) == nb["lz4"] and
+                          r["routes"]["compress.launches"] > 0,
+                          f"14b {tag}: lz4 batches through the compress "
+                          f"route {comp}, stored {nb['lz4']}")
+            p11_no_cpu(r["snap"], f"14b {tag} producer", dev)
+            p14_check(r["routes"]["launches"] > 0,
+                      f"14b {tag}: the producer's engine made no CRC launch")
+            if card:
+                p14_check(prod["crc_rows"] > 0 and
+                          (prod["lz4_rows"] > 0) == dev,
+                          f"14b {tag}: producer kernel launches {prod}")
+            # read back: every record in order, a verify region a batch
+            errs: list = []
+            c = p13_consumer(kit, cluster.bootstrap_servers(), backend,
+                             f"p14-{tag}", {}, errs)
+            verified = eos_count_control(c)
+            cbefore = eos_snapshot(eos_engine(c))
+            crc.launches = 0
+            rates = {cd: p6_consume(c, f"p14-{cd}", keys, vals)
+                     for cd in codecs}
+            c.unassign()
+            p14_check(verified[0] == sum(nb.values()),
+                      f"14b {tag}: {verified[0]} verify-ticket regions for "
+                      f"{sum(nb.values())} stored batches")
+            croutes = p14_engine_delta(c, cbefore)
+            p14_check(croutes["launches"] > 0 and
+                      (not card or crc.launches > 0),
+                      f"14b {tag}: the consumer made no CRC launch")
+            p11_no_cpu(eos_snapshot(eos_engine(c)), f"14b {tag} consumer",
+                       False)
+            cons = crc.launches
+            p = kit.Producer({"bootstrap.servers":
+                              cluster.bootstrap_servers(), "linger.ms": 5,
+                              "compression.backend": "cpu"})
+            try:
+                for cd in ("gzip", "zstd"):
+                    if cd in codecs:
+                        p14_corrupt(kit, cluster, p, c, errs, cd, tag)
+            finally:
+                p.close()
+        finally:
+            if c is not None:
+                c.close()
+            cluster.stop()
+        counts = {"crc_rows": prod["crc_rows"] + cons,
+                  "lz4_rows": prod["lz4_rows"]}
+        for k in total:
+            total[k] += counts[k]
+        out[tag] = {"batches": nb, "secs": r["secs"]}
+        n = len(codecs) * parts * per
+        print(f"phase 14b, leg {tag} "
+              f"({'gpu.compress.device' if dev else 'CRC tickets'}): "
+              f"{n} records x {VALUE_SIZE} B over {len(codecs)} topics of "
+              f"{parts} idempotent partitions ({n * VALUE_SIZE / 1e6:.1f} "
+              f"MB) in {r['secs']:.3f} s; stored batches {nb}, codec bits "
+              f"and CRCs exact, blobs == the CPU provider's round"
+              f"{' (lz4: the deterministic encoder)' if dev else ''}; CRC "
+              f"tickets {regions}"
+              + (f", lz4 through lz4_rows {comp.get('lz4', 0)}" if dev
+                 else "")
+              + f"; read back in order ({sum(nb.values())} verify regions), "
+              f"{'gzip and zstd' if 'zstd' in codecs else 'gzip'} flipped "
+              f"byte -> _BAD_MSG [{smi}]")
+        print("  consume msgs/s: " + ", ".join(
+            f"{cd} {rt:.1f}" for cd, rt in rates.items())
+            + f"; launches crc_rows {counts['crc_rows']}, lz4_rows "
+            f"{counts['lz4_rows']} [{smi}]")
+    out["counts"] = total
+    out["codecs"] = codecs
+    return out
+
+
+# ------------------------------------------------------------------ 14c --
+
+def p14_load_values(threads: int, per: int) -> list:
+    """Each application thread's values: 1 KB, the thread and index in
+    the first bytes."""
+    flat = payloads(threads * per, VALUE_SIZE)
+    return [[b"t%d-%06d|" % (t, j) + flat[t * per + j][10:]
+             for j in range(per)] for t in range(threads)]
+
+
+def p14_threads_produce(p, topic: str, vals, parts: int, mid=None) -> float:
+    """``len(vals)`` application threads each produce their values round
+    robin over ``parts`` partitions into one Producer; ``mid()`` runs on
+    this thread once half the records are in.  msgs/s to flush()."""
+    errors: list = []
+    half = threading.Event()
+    done = [0]
+    lock = threading.Lock()
+    n = sum(len(v) for v in vals)
+
+    def worker(t):
+        try:
+            for j, v in enumerate(vals[t]):
+                while True:
+                    try:
+                        p.produce(topic, value=v,
+                                  partition=(t * len(vals[t]) + j) % parts)
+                        break
+                    except Exception as e:     # queue full: back off
+                        if "QUEUE_FULL" not in str(e):
+                            raise
+                        p.poll(0.01)
+                with lock:
+                    done[0] += 1
+                    if done[0] == n // 2:
+                        half.set()
+        except Exception as e:
+            errors.append(e)
+    t0 = time.perf_counter()
+    ths = [threading.Thread(target=worker, args=(t,), name=f"p14-app-{t}")
+           for t in range(len(vals))]
+    for th in ths:
+        th.start()
+    if mid is not None:
+        half.wait(120)
+        mid()
+    for th in ths:
+        th.join()
+    p14_check(not errors, f"14c: produce() failed: {errors[:3]}")
+    p14_check(p.flush(300) == 0, f"14c {topic}: flush() did not drain")
+    secs = time.perf_counter() - t0
+    p14_check(p._rk.msg_cnt == 0 and p._rk.msg_bytes == 0,
+              f"14c {topic}: msg_cnt {p._rk.msg_cnt}, msg_bytes "
+              f"{p._rk.msg_bytes} after flush()")
+    return n / secs
+
+
+def p14_exactly_once(cluster, topic: str, parts: int, vals) -> int:
+    """Every produced value in ``topic``'s log exactly once, CRCs exact;
+    returns the batch count."""
+    batches = p14_batches(cluster, topic, parts)
+    got = sorted(v for part in p14_values(batches) for _k, v in part)
+    want = sorted(v for t in vals for v in t)
+    p14_check(len(got) == len(want) and got == want,
+              f"14c {topic}: {len(got)} stored for {len(want)} produced "
+              "(loss or duplication)")
+    return sum(len(part) for part in batches)
+
+
+def p14_group_read(kit, cluster, topic: str, backend: dict, n: int,
+                   tag: str) -> dict:
+    """0091's two consumers: a check.crcs GPU consumer of group
+    p14-grp-<tag> reads ``topic``; a second joins once half is read.
+    No record may be lost; duplicates are counted (the reference asserts
+    at least once)."""
+    conf = {"heartbeat.interval.ms": 100, "session.timeout.ms": 6000,
+            "check.crcs": True}
+    seen: dict = {}
+    per = {1: 0, 2: 0}
+    cs = [p13_consumer(kit, cluster.bootstrap_servers(), backend,
+                       f"p14-grp-{tag}", conf)]
+    try:
+        cs[0].subscribe([topic])
+        t0 = time.monotonic()
+        deadline = t0 + 120
+        quiet = None
+        while time.monotonic() < deadline:
+            got = 0
+            for k, c in enumerate(cs, 1):
+                for m in c.consume(2000, 0.05):
+                    p14_check(m.error is None, f"14c {tag} group: "
+                              f"{m.error}")
+                    seen[m.value] = seen.get(m.value, 0) + 1
+                    per[k] += 1
+                    got += 1
+            if len(cs) == 1 and len(seen) >= n // 2:
+                c2 = p13_consumer(kit, cluster.bootstrap_servers(), backend,
+                                  f"p14-grp-{tag}", conf)
+                cs.append(c2)
+                c2.subscribe([topic])
+            if len(seen) >= n and len(cs) == 2 and cs[1].assignment():
+                quiet = quiet or time.monotonic()
+                if got == 0 and time.monotonic() - quiet > 0.5:
+                    break
+        assigned2 = len(cs[1].assignment()) if len(cs) == 2 else 0
+        for c in cs:
+            p11_no_cpu(eos_snapshot(eos_engine(c)), f"14c {tag} group",
+                       False)
+        launches = sum(eos_engine(c).stats["launches"] for c in cs
+                       if eos_engine(c) is not None)
+    finally:
+        for c in cs:
+            c.close()
+    missing = n - len(seen)
+    p14_check(missing == 0, f"14c {tag} group: {missing} records never "
+              "consumed")
+    p14_check(assigned2 >= 1, f"14c {tag} group: the second consumer was "
+              "never assigned a partition")
+    return {"dups": sum(seen.values()) - len(seen), "per": per,
+            "secs": time.monotonic() - t0, "launches": launches}
+
+
+#: 14c: 0112's burst runs this many times at each backpressure threshold,
+#: interleaved, and the totals compare (one burst's count is load-bound)
+P14_BP_ROUNDS = 3
+
+
+def p14_burst(kit, backend: dict, tag: str, thresh: int) -> int:
+    """0112's burst (300 x 100 B at linger.ms 0, paced) on a 24 KB/s
+    sockem link with a 4 KB send buffer; returns the stored batches,
+    each through a CRC ticket where the provider has an engine."""
+    import socket as _socket
+    cluster = kit.MockCluster(num_brokers=1, topics={"bp": 1})
+    em = kit.Sockem(rate_bps=24 * 1024)
+
+    def connect_cb(host, port, timeout):
+        s = em.connect_cb(host, port, timeout)
+        s.setsockopt(_socket.SOL_SOCKET, _socket.SO_SNDBUF, 4096)
+        return s
+    p = None
+    try:
+        p = kit.Producer({"bootstrap.servers": cluster.bootstrap_servers(),
+                          "connect_cb": connect_cb,
+                          "queue.buffering.backpressure.threshold": thresh,
+                          "linger.ms": 0, "batch.num.messages": 10000,
+                          "message.timeout.ms": 60000, **backend})
+        eos_warm(p)
+        regions = p14_region_codecs(p._rk.codec_provider)
+        for i in range(300):
+            p.produce("bp", value=b"y" * 100, partition=0)
+            if i % 10 == 9:
+                time.sleep(0.002)
+        p14_check(p.flush(60.0) == 0, f"14c {tag} backpressure {thresh}: "
+                  "flush()")
+        nb = sum(len(part) for part in p14_batches(cluster, "bp", 1))
+        p14_check(eos_engine(p) is None or sum(regions.values()) >= nb,
+                  f"14c {tag} backpressure {thresh}: {regions} CRC regions "
+                  f"for {nb} batches")
+        p11_no_cpu(eos_snapshot(eos_engine(p)), f"14c {tag} backpressure",
+                   False)
+        return nb
+    finally:
+        if p is not None:
+            p.close()
+        cluster.stop()
+
+
+def p14_backpressure(kit, backend: dict, tag: str) -> dict:
+    """0112's backpressure: over ``P14_BP_ROUNDS`` interleaved bursts a
+    threshold, threshold 1 stores strictly fewer batches than threshold
+    1,000,000.  Returns each threshold's batches a burst."""
+    out = {1: [], 1000000: []}
+    for _ in range(P14_BP_ROUNDS):
+        for thresh, counts in out.items():
+            counts.append(p14_burst(kit, backend, tag, thresh))
+    p14_check(sum(out[1]) < sum(out[1000000]), f"14c {tag}: backpressure "
+              f"threshold 1 stored {out[1]} batches, not fewer than "
+              f"{out[1000000]}")
+    return out
+
+
+def p14_copy_max(kit, backend: dict, tag: str) -> int:
+    """0112's message.copy.max.bytes 64: a 10 B value (the arena lane)
+    and a 4 KB one (the Message path) in one batch through the CRC
+    ticket.  Returns the regions the ticket carried."""
+    cluster = kit.MockCluster(num_brokers=1, topics={"kn": 1})
+    p = None
+    try:
+        p = kit.Producer({"bootstrap.servers": cluster.bootstrap_servers(),
+                          "message.copy.max.bytes": 64, "linger.ms": 200,
+                          **backend})
+        eos_warm(p)
+        p.produce("kn", value=b"warm", partition=0)
+        p14_check(p.flush(10) == 0, f"14c {tag} copy.max: warm flush")
+        regions = p14_region_codecs(p._rk.codec_provider)
+        small, big = b"s" * 10, b"B" * 4096
+        p.produce("kn", value=small, partition=0)
+        p.produce("kn", value=big, partition=0)
+        p14_check(p.flush(10) == 0, f"14c {tag} copy.max: flush()")
+        p11_no_cpu(eos_snapshot(eos_engine(p)), f"14c {tag} copy.max",
+                   False)
+    finally:
+        if p is not None:
+            p.close()
+        cluster.stop()
+    batches = p14_batches(cluster, "kn", 1)[0][1:]
+    vals = [v for part in p14_values([batches]) for _k, v in part]
+    p14_check(len(batches) == 1 and vals == [small, big],
+              f"14c {tag} copy.max: {len(batches)} batches holding "
+              f"{[len(v) for v in vals]} B values, not one of [10, 4096]")
+    p14_check(sum(regions.values()) == 1, f"14c {tag} copy.max: "
+              f"{regions} CRC-ticket regions for the batch")
+    return sum(regions.values())
+
+
+def p14_load(kit, backend: dict, tag: str, threads: int, per: int,
+             parts: int, device: str, smi: str) -> dict:
+    """14c on one leg: 0091's concurrent producers (plain and with a
+    broker killed and restarted midway) and its two rebalancing
+    consumers."""
+    card = device != "cpu"
+    vals = p14_load_values(threads, per)
+    n = threads * per
+    dev = bool(backend.get("gpu.compress.device"))
+    cluster = kit.MockCluster(num_brokers=2,
+                              topics={"p14-st": parts, "p14-bounce": parts})
+    retries = [0]
+    requeue = kit.Toppar.enqueue_retry_batch
+
+    def counting(self, msgs):
+        retries[0] += 1
+        return requeue(self, msgs)
+    p = None
+    try:
+        p = p13_producer(kit, cluster.bootstrap_servers(), backend,
+                         {"message.send.max.retries": 10000,
+                          "retry.backoff.ms": 50,
+                          "message.timeout.ms": 120000})
+        prov = p._rk.codec_provider
+        submitted = [0]
+        p14_wrap_submit(prov, "compress_submit" if dev else "crc32c_submit",
+                        lambda *a: submitted.__setitem__(
+                            0, submitted[0] + len(a[1] if dev else a[0])))
+        crc.launches = 0
+        lz4.launches = 0
+        before = eos_snapshot(eos_engine(p))
+        rate = p14_threads_produce(p, "p14-st", vals, parts)
+        nb1 = p14_exactly_once(cluster, "p14-st", parts, vals)
+        sub1 = submitted[0]
+        p14_check(sub1 >= nb1, f"14c {tag}: {sub1} batches through the "
+                  f"device route for {nb1} stored")
+        from librdkafka_tpu_torch.protocol.proto import ApiKey
+
+        def bounce():
+            # a ProduceRequest held in flight, then the broker killed
+            cluster.set_rtt(1, 300)
+            p11_wait(p, lambda: any(
+                r.api == ApiKey.Produce for b in list(p._rk.brokers.values())
+                if b.nodeid == 1 for r in list(b.waitresp.values())),
+                f"14c {tag}: a ProduceRequest in flight to broker 1")
+            cluster.kill_broker(1)
+            cluster.set_rtt(1, 0)
+            time.sleep(0.3)
+            cluster.restart_broker(1)
+        kit.Toppar.enqueue_retry_batch = counting
+        try:
+            brate = p14_threads_produce(p, "p14-bounce", vals, parts,
+                                        mid=bounce)
+        finally:
+            kit.Toppar.enqueue_retry_batch = requeue
+        nb2 = p14_exactly_once(cluster, "p14-bounce", parts, vals)
+        p14_check(retries[0] >= 1, f"14c {tag}: the broker kill requeued "
+                  "no batch")
+        p14_check(submitted[0] - sub1 >= nb2 + retries[0],
+                  f"14c {tag}: {submitted[0] - sub1} batches through the "
+                  f"device route, fewer than {nb2} stored + {retries[0]} "
+                  "requeued")
+        routes = p14_engine_delta(p, before)
+        p11_no_cpu(eos_snapshot(eos_engine(p)), f"14c {tag} producer", dev)
+        prod = {"crc_rows": crc.launches, "lz4_rows": lz4.launches}
+        p14_check(routes["compress.launches" if dev else "launches"] > 0
+                  and (not card or prod["lz4_rows" if dev else "crc_rows"]
+                       > 0), f"14c {tag}: producer launches {routes} "
+                  f"{prod}")
+    finally:
+        kit.Toppar.enqueue_retry_batch = requeue
+        if p is not None:
+            p.close()
+    try:
+        crc.launches = 0
+        grp = p14_group_read(kit, cluster, "p14-st", backend, n, tag)
+        cons = crc.launches
+        p14_check(grp["launches"] > 0 and (not card or cons > 0),
+                  f"14c {tag} group: no CRC launch")
+    finally:
+        cluster.stop()
+    print(f"phase 14c, leg {tag}: {threads} application threads x {per} x "
+          f"{VALUE_SIZE} B into one idempotent lz4 producer over {parts} "
+          f"partitions on 2 brokers: exactly once in {nb1} batches, "
+          f"msg_cnt == msg_bytes == 0, {rate:.1f} msgs/s; broker 1 killed "
+          f"and restarted midway: exactly once in {nb2} batches, "
+          f"{retries[0]} batches requeued and rebuilt through the device "
+          f"route ({submitted[0] - sub1} through it), {brate:.1f} msgs/s "
+          f"[{smi}]")
+    print(f"  two check.crcs consumers in one group, the second joining "
+          f"halfway: none lost, {grp['dups']} duplicates (reads "
+          f"{grp['per']}) in {grp['secs']:.3f} s [{smi}]")
+    return {"crc_rows": prod["crc_rows"] + cons,
+            "lz4_rows": prod["lz4_rows"]}
+
+
+def p14_knobs(kit, backend: dict, tag: str, device: str, smi: str) -> dict:
+    """14c's conf knobs on one leg: 0112's backpressure and
+    message.copy.max.bytes."""
+    crc.launches = 0
+    bp = p14_backpressure(kit, backend, tag)
+    cm = p14_copy_max(kit, backend, tag)
+    p14_check(device == "cpu" or crc.launches > 0, f"14c {tag}: "
+              "backpressure and copy.max made no crc_rows launch")
+    print(f"  backpressure at 24 KB/s, {P14_BP_ROUNDS} bursts each: "
+          f"threshold 1 -> {bp[1]} batches, 1,000,000 -> {bp[1000000]}, "
+          f"each through a CRC ticket; "
+          f"message.copy.max.bytes 64: 10 B + 4 KB in one batch, {cm} CRC "
+          f"region [{smi}]")
+    return {"crc_rows": crc.launches, "lz4_rows": 0}
+
+
+# ------------------------------------------------------------------ 14d --
+
+def p14_behaviours(kit, backend: dict, device: str, smi: str) -> dict:
+    """14d: 0118's behaviours that cross the codec seam, on leg a: acks
+    0, 1 and -1, null key and value, MSG_SIZE_TOO_LARGE, an unknown
+    partition, the ut_handle_ProduceResponse retry (rebuilt through the
+    device route), reconsume after seek (identical records through the
+    verify tickets)."""
+    card = device != "cpu"
+    cluster = kit.MockCluster(num_brokers=1, topics={"bh": 2})
+    out = {}
+    crc.launches = 0
+    clients = []
+
+    def producer(**conf):
+        p = kit.Producer({"bootstrap.servers": cluster.bootstrap_servers(),
+                          "linger.ms": 2, **backend, **conf})
+        clients.append(p)
+        eos_warm(p)
+        return p
+    try:
+        for acks in (0, 1, -1):
+            topic = f"p14-acks{acks}"
+            p = producer(acks=acks)
+            for i in range(20):
+                p.produce(topic, value=b"a%d" % i * 50, partition=0)
+            p14_check(p.flush(10) == 0, f"14d acks={acks}: flush()")
+            got = [v for part in p14_values(p14_batches(cluster, topic, 1))
+                   for _k, v in part]
+            p14_check(got == [b"a%d" % i * 50 for i in range(20)],
+                      f"14d acks={acks}: stored {len(got)} of 20")
+            p11_no_cpu(eos_snapshot(eos_engine(p)), f"14d acks={acks}",
+                       False)
+            out[f"acks={acks}"] = eos_engine(p).stats["launches"]
+        # 0118's unknown partition: a fresh producer's first record (the
+        # topic's metadata not known yet) fails by DR; once the topic is
+        # known, produce() raises, in both packages
+        drs: list = []
+        p = kit.Producer({"bootstrap.servers": cluster.bootstrap_servers(),
+                          "linger.ms": 2, "message.timeout.ms": 3000,
+                          "message.max.bytes": 5000,
+                          "dr_msg_cb": lambda e, m: drs.append(e),
+                          **backend})
+        clients.append(p)
+        p.produce("bh", value=b"nope", partition=99)
+        p14_check(p.flush(10) == 0, "14d unknown partition: flush()")
+        p14_check([e and e.code for e in drs] ==
+                  [kit.Err._UNKNOWN_PARTITION], f"14d: partition 99 of an "
+                  f"unknown topic: DRs {drs}, not [_UNKNOWN_PARTITION]")
+        eos_warm(p)
+        raised = {}
+        for what, part, size in (("unknown", 99, 10), ("size", 0, 6000)):
+            try:
+                p.produce("bh", value=b"Z" * size, partition=part)
+            except kit.KafkaException as e:
+                raised[what] = e.error.code
+        p14_check(raised == {"unknown": kit.Err._UNKNOWN_PARTITION,
+                             "size": kit.Err.MSG_SIZE_TOO_LARGE},
+                  f"14d: produce() raised {raised}: partition 99 of a known "
+                  "topic must raise _UNKNOWN_PARTITION, a 6,000 B record at "
+                  "message.max.bytes 5,000 MSG_SIZE_TOO_LARGE")
+        drs.clear()
+        p.produce("bh", value=b"ok" * 100, partition=0)
+        p.produce("bh", value=None, key=b"onlykey", partition=1)
+        p.produce("bh", value=b"onlyvalue", key=None, partition=1)
+        p14_check(p.flush(10) == 0, "14d: flush()")
+        p14_check(drs == [None] * 3, f"14d: DRs {drs}")
+        p11_no_cpu(eos_snapshot(eos_engine(p)), "14d nulls", False)
+        seen, hook_drs = [], []
+
+        def hook(broker_id, base_msgid, err):
+            if not seen:
+                seen.append((broker_id, base_msgid))
+                return kit.KafkaError(kit.Err.REQUEST_TIMED_OUT,
+                                      "ut injected", retriable=True)
+            return None
+        p = producer(**{"ut_handle_ProduceResponse": hook,
+                        "retry.backoff.ms": 50,
+                        "dr_msg_cb": lambda e, m: hook_drs.append(e)})
+        regions = p14_region_codecs(p._rk.codec_provider)
+        p.produce("p14-retry", value=b"retry-me" * 64, partition=0)
+        p14_check(p.flush(10) == 0, "14d ut_handle_ProduceResponse: flush()")
+        p14_check(seen and hook_drs == [None], f"14d: the injected retry "
+                  f"(hook ran {len(seen)} times, DRs {hook_drs})")
+        # not idempotent: the mock stored the first send, so the retry
+        # stores it again (the reference's 0118 asserts only the DR)
+        stored = [v for part in p14_values(p14_batches(cluster, "p14-retry",
+                                                       1)) for _k, v in part]
+        p14_check(stored and set(stored) == {b"retry-me" * 64}
+                  and sum(regions.values()) >= 2,
+                  f"14d: the retried batch went through {regions} CRC "
+                  f"tickets, {len(stored)} stored")
+        out["retry_regions"] = sum(regions.values())
+        p = producer(**{"compression.codec": "lz4"})
+        for i in range(40):
+            p.produce("p14-rc", value=b"rc%02d" % i, key=b"k%02d" % i,
+                      partition=0)
+        p14_check(p.flush(10) == 0, "14d reconsume: flush()")
+        c = p13_consumer(kit, cluster.bootstrap_servers(), backend,
+                         "p14-rc", {})
+        clients.append(c)
+        verified = eos_count_control(c)
+
+        def read(k):
+            got = []
+            deadline = time.monotonic() + 20
+            while len(got) < k and time.monotonic() < deadline:
+                m = c.poll(0.1)
+                if m is not None and m.error is None:
+                    got.append((m.partition, m.offset, m.key, m.value))
+            return got
+        c.assign([kit.TopicPartition("bh", 1, OFFSET_BEGINNING)])
+        nulls = read(2)
+        p14_check([(k, v) for _p, _o, k, v in nulls] ==
+                  [(b"onlykey", None), (None, b"onlyvalue")],
+                  f"14d: null key / value read back as {nulls}")
+        c.assign([kit.TopicPartition("p14-rc", 0, OFFSET_BEGINNING)])
+        first = read(40)
+        v1 = verified[0]
+        c.seek(kit.TopicPartition("p14-rc", 0, 0))
+        second = read(40)
+        p14_check(len(first) == 40 and first == second,
+                  f"14d: reconsume after seek: {len(first)} then "
+                  f"{len(second)} records, identical {first == second}")
+        p14_check(v1 > 0 and verified[0] > v1, f"14d: verify regions "
+                  f"{v1} then {verified[0]}: the re-read took no ticket")
+        p11_no_cpu(eos_snapshot(eos_engine(c)), "14d consumer", False)
+        out["verify_regions"] = verified[0]
+    finally:
+        for cl in clients:
+            cl.close()
+        cluster.stop()
+    counts = {"crc_rows": crc.launches, "lz4_rows": 0}
+    p14_check(not card or counts["crc_rows"] > 0, "14d: no crc_rows launch")
+    print(f"phase 14d, leg a: acks 0 / 1 / -1 stored and exact (engine "
+          f"launches {out['acks=0']} / {out['acks=1']} / {out['acks=-1']}); "
+          f"null key and value read back; 6,000 B -> MSG_SIZE_TOO_LARGE; "
+          f"partition 99 -> _UNKNOWN_PARTITION (by DR, then raised); "
+          f"ut_handle_ProduceResponse "
+          f"retry delivered once, {out['retry_regions']} CRC regions; "
+          f"reconsume after seek identical ({out['verify_regions']} verify "
+          f"regions); crc_rows {counts['crc_rows']} [{smi}]")
+    return counts
+
+
+def p14_kit():
+    """The port's names phase 14 drives (phase 13's and the errors)."""
+    from librdkafka_tpu_torch.client.errors import KafkaError, KafkaException
+    kit = p13_kit()
+    kit.KafkaError, kit.KafkaException = KafkaError, KafkaException
+    return kit
+
+
+def phase_latency_load(smi: str, parts: int = P14_CODEC_PARTS,
+                       per: int = P14_CODEC_PER, lat_n: int = P14_LAT_N,
+                       threads: int = P14_THREADS,
+                       thread_per: int = P14_THREAD_PER,
+                       load_parts: int = P14_LOAD_PARTS,
+                       device: str = "cuda") -> dict:
+    """Phase 14: the producer's latency path (14a), the topic-scope
+    codec matrix (14b), the client under load (14c) and 0118's
+    behaviours across the codec seam (14d).  Returns its launches."""
+    t0 = time.perf_counter()
+    kit = p14_kit()
+    backend = {"compression.backend": "gpu", "gpu.device": device, **P6_GPU}
+    total = {"crc_rows": 0, "lz4_rows": 0}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+    died: list = []
+    hook = threading.excepthook
+
+    def record(args):
+        died.append(f"{args.thread.name}: {args.exc_type.__name__}")
+        hook(args)
+    threading.excepthook = record
+    try:
+        lat = p14_latency(kit, [
+            ("cpu", {"compression.backend": "cpu"}, False),
+            ("governed", {"compression.backend": "gpu",
+                          "gpu.device": device}, False),
+            ("a", backend, True),
+            ("b", {**backend, "gpu.compress.device": True}, True)],
+            lat_n, device, smi)
+        add(lat["counts"])
+        add(p14_codecs(kit, backend, P14_LEGS, parts, per, device,
+                       smi)["counts"])
+        add(p14_load(kit, backend, "a", threads, thread_per, load_parts,
+                     device, smi))
+        add(p14_knobs(kit, backend, "a", device, smi))
+        add(p14_behaviours(kit, backend, device, smi))
+    finally:
+        threading.excepthook = hook
+    p14_check(not died, f"phase 14: threads died of exceptions: {died}")
+    secs = time.perf_counter() - t0
+    check(secs <= P14_LIMIT_S, f"phase 14 took {secs:.3f} s, over its "
+          f"{P14_LIMIT_S} s")
+    print(f"phase 14: ok ({secs:.3f} s: 14a latency on four legs, 14b "
+          f"codecs on two legs, 14c under load, 14d behaviours; launches "
+          f"crc_rows {total['crc_rows']}, lz4_rows {total['lz4_rows']}) "
+          f"[{smi}]")
+    return total
+
+
 def kernel_line(main: dict, timing: dict, max_err: int) -> dict:
     """The crc_rows entry at the main path's shape (its produce regions
     as packed segments)."""
@@ -5803,16 +6875,18 @@ def main() -> None:
     api = phase_api(dev["smi"])
     obs = phase_obs(dev["smi"])
     planes = phase_planes(dev["smi"])
+    load = phase_latency_load(dev["smi"])
     cnt = mp["counts"]
     main_path["launches"] += (engine["launches"] + client["crc_rows"]
                               + cnt["crc_rows"] + robust["crc_rows"]
                               + capi["crc_rows"] + eos["crc_rows"]
                               + api["crc_rows"] + obs["crc_rows"]
-                              + planes["crc_rows"])
+                              + planes["crc_rows"] + load["crc_rows"])
     comp["launches"] += (client["lz4_rows"] + cnt["lz4_rows"]
                          + robust["lz4_rows"] + capi["lz4_rows"]
                          + eos["lz4_rows"] + api["lz4_rows"]
-                         + obs["lz4_rows"] + planes["lz4_rows"])
+                         + obs["lz4_rows"] + planes["lz4_rows"]
+                         + load["lz4_rows"])
     line = kernel_line(main_path, timing, max(max_err, engine["max_err"]))
     lz4_line = {"name": "lz4_rows", "route": "cuda",
                 "source": "librdkafka_tpu_torch/csrc/lz4_rows.cu",

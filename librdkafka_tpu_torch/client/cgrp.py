@@ -132,7 +132,8 @@ class ConsumerGroup:
         # metadata_update rejoin; unknown ones rejoin when their
         # metadata lands (the assignor needs the partition counts)
         with self.rk._metadata_lock:
-            known = set(self.rk.metadata["topics"])
+            known = {t for t, parts in self.rk.metadata["topics"].items()
+                     if parts}
         self._lit_known = {t for t in topics
                            if not t.startswith("^") and t in known}
         # literals after patterns are installed: their metadata_refresh
@@ -162,7 +163,14 @@ class ConsumerGroup:
         topic_names = set(topic_names)
         reasons = []
         lits = {t for t in self.subscription if not t.startswith("^")}
-        newly = (lits & topic_names) - self._lit_known
+        # a literal topic is known once it has partitions: a reply that
+        # names it with a transient error (LEADER_NOT_AVAILABLE while it
+        # is being created) gives the assignor nothing to assign, and
+        # counting it would swallow the rejoin its partitions need
+        with self.rk._metadata_lock:
+            sized = {t for t in lits & topic_names
+                     if self.rk.metadata["topics"].get(t)}
+        newly = sized - self._lit_known
         self._lit_known |= newly
         if full:
             # full enumeration: a deleted topic re-arms its trigger so

@@ -15,7 +15,8 @@ scenario and the stress gate) with its device legs on the card, the
 C ABI (capi/gpu_smoke.c through libtkafka.so) on the card, the
 exactly-once copy of chip_smoke.py phase 10, the delivery path and
 consumer API of its phase 11, and a traced produce whose device_launch
-spans match the CRC kernel's launches, each at a small size.  Marked
+spans match the CRC kernel's launches, and the linger-0 leg and codec
+matrix of its phase 14, each at a small size.  Marked
 ``gpu``; each skips on a host without CUDA.  On a card
 (tests/conftest.py imports jax, which the GPU host lacks):
 
@@ -809,3 +810,27 @@ def test_tls_admin_legacy_and_socket_faults_on_card(card):
     import chip_smoke
     out = chip_smoke.phase_planes("card test", parts=8, per_part=400)
     assert out["crc_rows"] > 0 and out["lz4_rows"] > 0
+
+
+# ------------------------------------------------------- latency, load --
+
+def test_latency_load_leg_a_and_codecs_on_card(card):
+    """chip_smoke.py phase 14 at reduced counts on the card: 14a's legs a
+    and b (0055's bounds, 50 awaited linger-0 records, one crc_rows or
+    lz4_rows launch a batch, no CPU route) and 14b (the topic-scope codec
+    matrix at 4 partitions x 400 records on the CRC tickets and the
+    device compress route, blobs equal to the CPU provider's round, every
+    CRC exact).  Any check that fails raises."""
+    import chip_smoke
+    kit = chip_smoke.p14_kit()
+    backend = {"compression.backend": "gpu", "gpu.device": "cuda",
+               **chip_smoke.P6_GPU}
+    lat = chip_smoke.p14_latency(
+        kit, [("a", backend, True),
+              ("b", {**backend, "gpu.compress.device": True}, True)],
+        50, "cuda", "card test")
+    assert lat["a"]["counts"] == {"crc_rows": 50, "lz4_rows": 0}
+    assert lat["b"]["counts"] == {"crc_rows": 0, "lz4_rows": 50}
+    out = chip_smoke.p14_codecs(kit, backend, chip_smoke.P14_LEGS, 4, 400,
+                                "cuda", "card test")
+    assert out["counts"]["crc_rows"] > 0 and out["counts"]["lz4_rows"] > 0

@@ -1,19 +1,23 @@
 """Mirrors of test_0132_cooperative (KIP-429: the cooperative-sticky
 assignor, Subscription v1, the client's two-phase incremental flow, static
 members under cooperative, the mock's generation and ownership checks,
-the oracle's continuity invariant, the lite member fleet and the fast
-scenarios; every class but TestFlagship) and test_0102_static_membership
-on the port.
+the oracle's continuity invariant, the lite member fleet, the fast
+scenarios and TestFlagship) and test_0102_static_membership on the
+port.
 
 The assignor, subscription and oracle cases compare the port's result
 with the JAX package's on the same input.  The client cases consume
 through the codec, so the port's clients run ``compression.backend=gpu,
 gpu.device=cpu`` and each scenario runs on both packages at once
 (``test_torch_txn.both``), the port's result equal to the reference's.
-The lite member fleet and the two scenarios run on the port alone, with
+The lite member fleet and the scenarios run on the port alone, with
 the reference test's assertions: their members consume uncompressed
 records through the CPU provider (as the reference's do), and their
-timings are not comparable between two runs.
+timings are not comparable between two runs; the flagship's replay key,
+a function of the seed alone, is held equal to the reference's.
+TestFlagship keeps the reference's ``chaos`` and ``slow`` markers, so
+the tier-1 run (``-m 'not slow'``) leaves it out, as it leaves out the
+reference's.
 """
 import json
 import os
@@ -588,3 +592,38 @@ def test_oracle_continuity_selftest():
     with open(r["flight_path"]) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert "oracle_violation" in names
+
+
+@pytest.mark.chaos
+@pytest.mark.slow
+class TestFlagship:
+    def test_cooperative_churn_storm_300_members(self):
+        """At least 300 members on overlapping join/leave lifetimes and a
+        pid-verified coordinator SIGKILL mid-rebalance: the continuity
+        invariant holds (no stop-the-world window) and the group
+        converges to exact coverage within the bound."""
+        from librdkafka_tpu_torch.chaos.scenarios import (
+            cooperative_churn_storm)
+        r = cooperative_churn_storm()
+        assert r["ok"], r["violations"]
+        assert r["members"] >= 300
+        assert r["kills_fired"] >= 1
+        assert r["pids_killed"] and r["pids_killed"][0]["verified_dead"]
+        assert r["continuity"]["flow_gaps"] == 0
+        assert r["converged_s"] is not None and r["converged_s"] <= 45
+        assert r["group"]["coverage"]["converged"]
+        assert not r["errors"] and not r["schedule_errors"]
+
+    def test_flagship_replay_key_identical_across_rigs(self):
+        """Same seed, the same fault replay key across two supervisor
+        launches of the port, and the reference's key for that seed."""
+        from librdkafka_tpu.chaos.scenarios import (
+            cooperative_churn_storm as ref_storm)
+        from librdkafka_tpu_torch.chaos.scenarios import (
+            cooperative_churn_storm)
+        kw = {"members": 30, "churners": 10, "raise_on_violation": False}
+        r1 = cooperative_churn_storm(**kw)
+        r2 = cooperative_churn_storm(**kw)
+        ref = ref_storm(**kw)
+        assert r1["replay_key"] == r2["replay_key"] == ref["replay_key"]
+        assert r1["kills_fired"] == r2["kills_fired"] == 1
