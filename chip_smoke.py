@@ -288,8 +288,17 @@ CRC region); (d) test_0118's behaviours across the codec seam on leg a:
 acks 0, 1 and -1, null key and value, MSG_SIZE_TOO_LARGE, an unknown
 partition, the ut_handle_ProduceResponse retry rebuilt through the CRC
 ticket, reconsume after seek through the verify tickets.  Phase 14
-fails past 90 s or if a thread dies of an exception.  Any mismatch exits
-non-zero.
+fails past 90 s or if a thread dies of an exception.  Phase 15 runs the
+port's benchmark entry point as users do, as subprocesses of ``python -m
+librdkafka_tpu_torch.bench`` on the card: (a) ``--smoke --anchor`` then
+``--smoke`` into a temporary trend ledger, every engine leg bit-identical
+in both, and the unchanged scripts/trendgate.py passing the ledger's two
+rows; (b) the default leg cut to 100,000 records a trial with no codec
+size sweep and no mesh blob: crc_rows' device time on 128 x 64 KB (exact
+against the CPU provider, at most 105% of the card's HBM rate), the
+CPU and governed-GPU producer triples and the other extras printed with
+the card's name and power limit; its kernel launches join the kernels
+line.  Phase 15 fails past 90 s.  Any mismatch exits non-zero.
 
 The last two lines of standard output are a ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -3201,15 +3210,19 @@ def eos_exactly_once(vals, got: list) -> None:
 
 def eos_stored(cluster, parts: int, det: bool | None) -> dict:
     """Every stored batch of eos-out: its CRC == the native crc32c of its
-    region, every data batch transactional lz4 whose frame == the native
-    encoder's (``det``: the deterministic one; None: not compared), every
-    control batch counted by type."""
+    region, every data batch transactional and lz4 whose frame == the
+    native encoder's (``det``: the deterministic one; None: not
+    compared), or uncompressed where that encoder's frame of its records
+    is no smaller than them (the writer's rule: a batch of a record or
+    two of incompressible values), every control batch counted by type
+    (``plain``: the data batches stored uncompressed)."""
     from librdkafka_tpu_torch.protocol.msgset import (iter_batches,
                                                       parse_records_v2)
     from librdkafka_tpu_torch.protocol.proto import CTRL_ABORT
-    out = {"data": 0, "commit": 0, "abort": 0}
+    out = {"data": 0, "commit": 0, "abort": 0, "plain": 0}
+    encode = det_frames if det else native.lz4f_compress_many
     for i in range(parts):
-        infos, regions, frames = [], [], []
+        infos, regions, frames, plain = [], [], [], []
         for _base, blob in cluster.partition(EOS_OUT, i).log:
             for info, payload, full in iter_batches(blob):
                 infos.append(info)
@@ -3221,18 +3234,21 @@ def eos_stored(cluster, parts: int, det: bool | None) -> dict:
                             == CTRL_ABORT else "commit")
                     out[kind] += 1
                     continue
-                if not (info.is_transactional and info.codec == "lz4"):
+                if not (info.is_transactional
+                        and info.codec in ("lz4", None)):
                     raise EosError(f"eos-out[{i}]: a data batch is not "
                                    f"transactional lz4 ({info.codec})")
-                frames.append(bytes(payload))
+                (frames if info.codec else plain).append(bytes(payload))
                 out["data"] += 1
+        out["plain"] += len(plain)
         if native.crc32c_many(regions).tolist() != [x.crc for x in infos]:
             raise EosError(f"eos-out[{i}]: a batch CRC != the native crc32c")
+        if any(len(f) < len(r) for f, r in zip(encode(plain), plain)):
+            raise EosError(f"eos-out[{i}]: a data batch stored uncompressed "
+                           "though lz4 shrinks its records")
         if det is not None and frames:
             raws = native.lz4f_decompress_many(frames, None)
-            enc = (det_frames(raws) if det
-                   else native.lz4f_compress_many(raws))
-            if enc != frames:
+            if encode(raws) != frames:
                 raise EosError(f"eos-out[{i}]: an lz4 frame != the native "
                                f"{'deterministic' if det else 'default'} "
                                "encoder's")
@@ -4060,6 +4076,57 @@ def p11_settled(client) -> None:
             p11_check(not th.is_alive(), f"11c: {th.name} still running")
 
 
+def p11_watch_exit(broker) -> dict:
+    """What could end 11c's wedged broker thread, recorded from its
+    choice on: each stop() of the broker (its caller's stack), each write
+    of True to its ``terminate`` (its loop's only exit) and any exception
+    the thread dies of; with whether the thread was alive when chosen.
+    11c prints it when it finds the thread gone."""
+    import traceback
+    seen = {"alive_when_chosen": broker.thread.is_alive(), "events": []}
+    stop = broker.stop
+
+    def recorded_stop():
+        seen["events"].append("stop() called from:\n" + "".join(
+            traceback.format_stack(limit=8)[:-1]))
+        stop()
+    broker.stop = recorded_stop
+
+    class Watched(type(broker)):
+        @property
+        def terminate(self):
+            return self.__dict__.get("terminate", False)
+
+        @terminate.setter
+        def terminate(self, v):
+            if v:
+                seen["events"].append(
+                    f"terminate set on {threading.current_thread().name}"
+                    ":\n" + "".join(traceback.format_stack(limit=8)[:-1]))
+            self.__dict__["terminate"] = v
+    broker.__class__ = Watched
+    hook = threading.excepthook
+
+    def died(args):
+        if args.thread is broker.thread:
+            seen["events"].append("died of " + "".join(
+                traceback.format_exception(args.exc_type, args.exc_value,
+                                           args.exc_traceback)))
+        hook(args)
+    seen["restore"] = lambda: setattr(threading, "excepthook", hook)
+    threading.excepthook = died
+    return seen
+
+
+def p11_why(seen: dict | None) -> str:
+    """11c's account of a wedged thread found gone (p11_watch_exit)."""
+    if seen is None:
+        return ""
+    return (f" (alive when chosen: {seen['alive_when_chosen']}; what ended "
+            "it: " + ("\n".join(seen["events"]) or "no stop(), no write "
+                      "of terminate, no exception seen") + ")")
+
+
 def p11_teardown(kit, backend: dict, tag: str, parts: int = 8,
                  per: int = 400) -> dict:
     """11c: a GPU Producer and a check.crcs Consumer with tickets in
@@ -4074,7 +4141,7 @@ def p11_teardown(kit, backend: dict, tag: str, parts: int = 8,
                               auto_create_topics=False)
     TP = kit.TopicPartition
     out: dict = {}
-    stuck = None
+    stuck = seen = None
     try:
         p = kit.Producer({"bootstrap.servers": cluster.bootstrap_servers(),
                           "linger.ms": 5, "compression.codec": "lz4",
@@ -4103,6 +4170,7 @@ def p11_teardown(kit, backend: dict, tag: str, parts: int = 8,
             with c._rk._brokers_lock:
                 stuck = next(b for b in c._rk.brokers.values()
                              if b.nodeid == 2)
+            seen = p11_watch_exit(stuck)
             # a burst to fetch; wedge broker 2's thread while its fetch
             # pipeline holds partitions (best effort: a serve pass in
             # progress may still reap them); a second burst (producer
@@ -4157,8 +4225,10 @@ def p11_teardown(kit, backend: dict, tag: str, parts: int = 8,
         p11_check(not w["hung"] and not w["other"],
                   f"11c {tag}: ticket waiters {w}")
         p11_check(stuck.thread.is_alive(), f"11c {tag}: the wedged broker "
-                  "thread exited before close() met it")
+                  "thread exited before close() met it" + p11_why(seen))
     finally:
+        if seen is not None:
+            seen["restore"]()
         if stuck is not None:
             stuck.terminate = True
             stuck.thread.join(5)
@@ -6841,6 +6911,169 @@ def phase_latency_load(smi: str, parts: int = P14_CODEC_PARTS,
     return total
 
 
+# --------------------------------------------------------------- phase 15 --
+
+P15_LIMIT_S = 90
+#: the default leg's cuts, through the bench's own knobs: 100,000 records
+#: a producer/consumer trial (not 500,000), no codec size sweep (BASELINE
+#: config 3), no mesh blob (phase 7 measures the lanes)
+P15_DEFAULT_ENV = {"BENCH_MSGS": "100000", "BENCH_SWEEP": "0",
+                   "BENCH_MESH": "0"}
+#: the engine legs --smoke must report bit-identical
+P15_SMOKE_LEGS = ("sync", "pipelined", "fetch_pipeline", "governor",
+                  "fused", "device_codec", "mesh", "fetch_session",
+                  "fast_lane")
+#: the default leg's keys that must not be null (a failed extra is
+#: printed to stderr and emitted null)
+P15_KEYS = ("value", "vs_baseline", "host_pipeline_msgs_s",
+            "host_pipeline_gpu_backend_msgs_s", "consumer_pipeline_msgs_s",
+            "consumer_small_100b_msgs_s", "producer_small_100b_msgs_s",
+            "idempotent_64tp_msgs_s", "producer_dr_msgs_s",
+            "producer_dr_batch_msgs_s")
+P15_DETAIL_KEYS = ("gpu_crc_device_ms", "gpu_crc_mb_s", "speedup",
+                   "crc_bw_pct_of_hbm", "crc_bound_ms", "hbm_gb_s",
+                   "rtt_ms", "transport_mb_s", "lz4_device_ms_4x64k",
+                   "cpu_crc_ms", "cpu_crc_ms_median")
+
+
+class BenchError(RuntimeError):
+    """The port's bench failed one of phase 15's checks."""
+
+
+def p15_check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise BenchError(msg)
+
+
+def p15_bench(args, tmpdir: str, tag: str, env=None,
+              timeout: float = P15_LIMIT_S) -> dict:
+    """``python -m librdkafka_tpu_torch.bench <args> --json`` as a user
+    runs it, its trend ledger in ``tmpdir``; returns its artifact.  The
+    bench runs in a session of its own, killed whole afterwards, so no
+    mock it started outlives it.  Lines of its stderr that name a failed
+    extra are printed."""
+    import signal
+    out = os.path.join(tmpdir, f"{tag}.json")
+    e = {**os.environ, "BENCH_TREND_PATH": os.path.join(tmpdir,
+                                                        "trend.jsonl"),
+         **(env or {})}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "librdkafka_tpu_torch.bench", *args,
+         "--json", out], cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=e, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        _stdout, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise BenchError(f"bench {' '.join(args)} ran past {timeout} s")
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    for line in err.splitlines():
+        if "failed" in line:
+            print(f"  bench {' '.join(args) or '(default)'}: {line}")
+    p15_check(proc.returncode == 0, f"bench {' '.join(args)} exited "
+              f"{proc.returncode}:\n{err[-4000:]}")
+    with open(out) as f:
+        art = json.load(f)
+    p15_check(art["device"]["platform"] == "gpu",
+              f"bench {' '.join(args)} ran on {art['device']}")
+    return art
+
+
+def phase_bench(smi: str) -> dict:
+    """Phase 15: the port's benchmark entry point as users run it, as
+    subprocesses of ``python -m librdkafka_tpu_torch.bench`` on the card.
+    (a) ``--smoke --anchor`` then ``--smoke`` into a temporary ledger:
+    both exit 0 with every engine leg bit-identical, and the unchanged
+    scripts/trendgate.py passes the ledger's two schema-1 rows.  (b) The
+    default leg, cut by :data:`P15_DEFAULT_ENV` (BENCH_MSGS=100000 a
+    trial, BENCH_SWEEP=0, BENCH_MESH=0): crc_rows' device time on 128 x
+    64 KB exact against the CPU provider and at most 105% of HBM, and no
+    extra null.  Returns the bench processes' kernel launches."""
+    import tempfile
+    t0 = time.perf_counter()
+    total = {"crc_rows": 0, "lz4_rows": 0}
+    tmp = tempfile.mkdtemp(prefix="p15-")
+    try:
+        smokes = [p15_bench(["--smoke", "--anchor"], tmp, "smoke1"),
+                  p15_bench(["--smoke"], tmp, "smoke2")]
+        for k, art in enumerate(smokes, 1):
+            bad = {leg: art["legs"].get(leg) for leg in P15_SMOKE_LEGS
+                   if not str(art["legs"].get(leg)).startswith(
+                       "bit-identical")}
+            p15_check(not bad, f"15a: --smoke run {k}: legs not "
+                      f"bit-identical: {bad}")
+        ledger = os.path.join(tmp, "trend.jsonl")
+        with open(ledger) as f:
+            rows = [json.loads(x) for x in f]
+        p15_check(len(rows) == 2 and all(r["schema"] == 1 and
+                                         r["leg"] == "smoke" for r in rows)
+                  and rows[0]["anchor"] and not rows[1]["anchor"],
+                  f"15a: the ledger's rows: {rows}")
+        gate = subprocess.run(
+            [sys.executable, os.path.join(os.path.dirname(
+                os.path.abspath(__file__)), "scripts", "trendgate.py"),
+             "--ledger", ledger], capture_output=True, text=True,
+            timeout=60)
+        p15_check(gate.returncode == 0, f"15a: trendgate exited "
+                  f"{gate.returncode}: {gate.stdout} {gate.stderr}")
+        for k, art in enumerate(smokes, 1):
+            ovh = art["trace_overhead"]
+            print(f"15a: --smoke run {k}: {len(P15_SMOKE_LEGS)} engine legs "
+                  f"bit-identical, {art['elapsed_s']} s, produce "
+                  f"{ovh['produce_ns_per_msg']} ns/msg; overhead gates "
+                  f"trace {ovh['pass']}, lockdep "
+                  f"{art['lockdep_overhead']['pass']}, races "
+                  f"{art['races_overhead']['pass']} [{smi}]")
+        print(f"15a: {(gate.stdout + gate.stderr).strip()}")
+
+        d = p15_bench([], tmp, "default", env=P15_DEFAULT_ENV)
+        det = d["detail"]
+        null = ([k for k in P15_KEYS if d.get(k) is None]
+                + [f"detail.{k}" for k in P15_DETAIL_KEYS
+                   if det.get(k) is None])
+        p15_check(det.get("crc_bit_exact") is True,
+                  "15b: crc_rows not exact against the CPU provider")
+        p15_check(not null, f"15b: null keys: {null}")
+        p15_check(det["crc_bw_pct_of_hbm"] <= 105, "15b: crc_bw_pct_of_hbm "
+                  f"{det['crc_bw_pct_of_hbm']} > 105")
+        print(f"15b: crc_rows 128 x 64 KB: {det['gpu_crc_device_ms']} ms "
+              f"device, {det['gpu_crc_mb_s']} MB/s, crc_bw_pct_of_hbm "
+              f"{det['crc_bw_pct_of_hbm']} (of {det['hbm_gb_s']} GB/s; bound "
+              f"{det['crc_bound_ms']} ms); CPU provider {det['cpu_crc_ms']} "
+              f"ms (min of 11; median {det['cpu_crc_ms_median']}); "
+              f"lz4_rows 4 x 64 KB {det['lz4_device_ms_4x64k']} ms; "
+              f"transport {det['transport_mb_s']} MB/s [{smi}]")
+        tr = d["host_pipeline_trials"]
+        print(f"15b: host_pipeline_msgs_s {d['host_pipeline_msgs_s']} "
+              f"(trials {tr['cpu']}), host_pipeline_gpu_backend_msgs_s "
+              f"{d['host_pipeline_gpu_backend_msgs_s']} (trials {tr['gpu']})"
+              f" [{smi}]")
+        print(f"15b: consumer {d['consumer_pipeline_msgs_s']}, consumer "
+              f"100 B {d['consumer_small_100b_msgs_s']}, producer 100 B "
+              f"{d['producer_small_100b_msgs_s']}, idempotent 64 toppars "
+              f"{d['idempotent_64tp_msgs_s']}, dr_msg_cb "
+              f"{d['producer_dr_msgs_s']}, dr_batch_cb "
+              f"{d['producer_dr_batch_msgs_s']} msgs/s [{smi}]")
+        for art in (*smokes, d):
+            for k in total:
+                total[k] += art["kernel_launches"][k]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    check(secs <= P15_LIMIT_S, f"phase 15 took {secs:.3f} s, over its "
+          f"{P15_LIMIT_S} s")
+    print(f"phase 15: ok ({secs:.3f} s: 15a --smoke twice + trendgate, 15b "
+          f"the default leg cut to {P15_DEFAULT_ENV}; launches crc_rows "
+          f"{total['crc_rows']}, lz4_rows {total['lz4_rows']}) [{smi}]")
+    return total
+
+
 def kernel_line(main: dict, timing: dict, max_err: int) -> dict:
     """The crc_rows entry at the main path's shape (its produce regions
     as packed segments)."""
@@ -6876,17 +7109,19 @@ def main() -> None:
     obs = phase_obs(dev["smi"])
     planes = phase_planes(dev["smi"])
     load = phase_latency_load(dev["smi"])
+    bench = phase_bench(dev["smi"])
     cnt = mp["counts"]
     main_path["launches"] += (engine["launches"] + client["crc_rows"]
                               + cnt["crc_rows"] + robust["crc_rows"]
                               + capi["crc_rows"] + eos["crc_rows"]
                               + api["crc_rows"] + obs["crc_rows"]
-                              + planes["crc_rows"] + load["crc_rows"])
+                              + planes["crc_rows"] + load["crc_rows"]
+                              + bench["crc_rows"])
     comp["launches"] += (client["lz4_rows"] + cnt["lz4_rows"]
                          + robust["lz4_rows"] + capi["lz4_rows"]
                          + eos["lz4_rows"] + api["lz4_rows"]
                          + obs["lz4_rows"] + planes["lz4_rows"]
-                         + load["lz4_rows"])
+                         + load["lz4_rows"] + bench["lz4_rows"])
     line = kernel_line(main_path, timing, max(max_err, engine["max_err"]))
     lz4_line = {"name": "lz4_rows", "route": "cuda",
                 "source": "librdkafka_tpu_torch/csrc/lz4_rows.cu",

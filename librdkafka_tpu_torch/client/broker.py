@@ -1292,8 +1292,13 @@ class Broker:
         with rk._msg_cnt_lock:
             flush_forced = rk.flushing
 
-        for tp in list(self.toppars):
-            if tp.leader_id != self.nodeid:
+        # O(active), as the consumer's serve: metadata registers every
+        # partition of every known topic in self.toppars (a 100,000-
+        # partition topic made each pass walk them all), while a
+        # produced-to partition is in the client's active index (the
+        # wake of its first enqueue activates it)
+        for tp in rk.active_toppars():
+            if tp not in self.toppars or tp.leader_id != self.nodeid:
                 continue
             tp.xmit_move()
             # idempotence / backpressure gates
@@ -1866,6 +1871,15 @@ class Broker:
         fs = self._fetch_session
         use_session = (fetch_ver >= 7
                        and rk.conf.get("fetch.session.enable"))
+        if use_session and fs.overflow_inflight:
+            # an overflow fetch (below) is out.  The broker answers a
+            # connection's requests in order, so it lands after the
+            # session response it was queued behind: a session built
+            # before it lands finds its partitions in flight and leaves
+            # them out of the book again, every epoch (a 10,000-partition
+            # assign kept thousands out for good).  It returns at once
+            # (max_wait 0): build after it.
+            return
         part_max = rk.conf.get("fetch.message.max.bytes")
         body = {
             "replica_id": -1,
@@ -1934,6 +1948,7 @@ class Broker:
                     return
                 fs.overflowed.update(
                     (tp.topic, tp.partition) for tp in fetch_parts)
+                fs.overflow_inflight += 1
                 body["max_wait_time"] = 0
             by_topic = {}
             for tp in fetch_parts:
@@ -1947,11 +1962,12 @@ class Broker:
         for tp in fetch_parts:
             tp.fetch_in_flight = True
         versions = {(tp.topic, tp.partition): tp.version for tp in fetch_parts}
+        overflow = use_session and not session_req
         self._xmit(Request(ApiKey.Fetch, body, version=fetch_ver,
                            cb=lambda err, resp, parts=fetch_parts,
-                           sess=session_req:
+                           sess=session_req, ovf=overflow:
                            self._handle_fetch(err, resp, versions, parts,
-                                              session=sess)))
+                                              session=sess, overflow=ovf)))
 
     def _offset_query(self, tp):
         """Logical offset (BEGINNING/END) → ListOffsets
@@ -2001,8 +2017,12 @@ class Broker:
         tp.fetch_state = FetchState.ACTIVE
         self.rk.dbg("fetch", f"{tp}: offset query -> {tp.fetch_offset}")
 
-    def _handle_fetch(self, err, resp, versions, parts, session=False):
+    def _handle_fetch(self, err, resp, versions, parts, session=False,
+                      overflow=False):
         self.fetch_inflight_cnt = max(0, self.fetch_inflight_cnt - 1)
+        if overflow:
+            fs = self._fetch_session
+            fs.overflow_inflight = max(0, fs.overflow_inflight - 1)
         # in-flight claim discipline: OK partitions stay claimed
         # continuously from request to deferred-entry processing (a
         # clear-then-reclaim window would let another broker double-

@@ -54,7 +54,7 @@ class FetchSession:
 
     __slots__ = ("session_id", "epoch", "book", "inflight",
                  "c_partitions_sent", "c_full_fetches", "c_resets",
-                 "_pending", "overflowed")
+                 "_pending", "overflowed", "overflow_inflight")
 
     def __init__(self):
         self.session_id = 0
@@ -73,6 +73,10 @@ class FetchSession:
         # overflow fetch this epoch (see Broker._consumer_serve) —
         # cleared at each session build so the next epoch absorbs them
         self.overflowed: set[tuple] = set()
+        # overflow fetches out (their callbacks count down, errors too):
+        # no session request is built while one is (see
+        # Broker._consumer_serve); a reset leaves it to the callbacks
+        self.overflow_inflight = 0
 
     # ------------------------------------------------------------ build --
     def build(self, wanted: dict[tuple, tuple]):
@@ -150,5 +154,6 @@ class FetchSession:
 # int/len snapshots, atomic under the GIL.
 register_slots(FetchSession, "session_id", "epoch", "book", "inflight",
                "c_partitions_sent", "c_full_fetches", "c_resets",
-               "_pending", "overflowed", prefix="fetch_session",
+               "_pending", "overflowed", "overflow_inflight",
+               prefix="fetch_session",
                relaxed=True)

@@ -21,6 +21,12 @@ timestamps) compares
 the stored eos-out blobs, data and control batches, byte for byte.  The
 mocks write a control batch's timestamp from the wall clock, so that
 case pins both mocks' ``time.time``; no field is masked.
+
+The values are incompressible 4-bit noise, so whether a data batch
+compresses depends on how many records the fetch timing puts in it: a
+batch of one record is stored uncompressed (the writer keeps lz4 only
+where it shrinks the records, in both packages), and ``eos_stored``
+holds such a batch to that rule (the last case here pins it).
 """
 import time
 from types import SimpleNamespace
@@ -240,3 +246,40 @@ def test_position_after_seek_equals_reference():
             cluster.stop()
     port, ref = both(scenario)
     assert port == ref == [list(range(10)), 10, 10, 4, 5]
+
+
+@pytest.mark.parametrize("pkg", ["port", "ref"])
+def test_uncompressed_batch_held_to_the_writers_rule(pkg):
+    """What made the copy above fail under load: a transaction that
+    carries one record of incompressible 4-bit values to a partition
+    writes a batch that lz4 cannot shrink, and the writer stores it
+    uncompressed (both packages).  ``eos_stored`` accepts such a batch
+    and counts it ``plain``; it rejects an uncompressed batch whose
+    records lz4 shrinks."""
+    kit, backend = ((eos.port_kit(), PORT_GPU) if pkg == "port"
+                    else (REF, {"compression.backend": "cpu"}))
+    noise = _values(parts=1, per=1, size=300)[0][0]
+    for codec, value, plain_ok in (("lz4", noise, True),
+                                   ("none", b"compressible " * 40, False)):
+        cluster = kit.MockCluster(num_brokers=1, topics={eos.EOS_OUT: 1})
+        try:
+            p = kit.Producer({"bootstrap.servers":
+                              cluster.bootstrap_servers(),
+                              "transactional.id": f"plain-{pkg}-{codec}",
+                              "compression.codec": codec, **backend})
+            try:
+                p.init_transactions(30)
+                p.begin_transaction()
+                p.produce(eos.EOS_OUT, value=value, partition=0)
+                p.commit_transaction(30)
+            finally:
+                p.close()
+            if plain_ok:
+                stored = eos.eos_stored(cluster, 1, det=False)
+                assert stored == {"data": 1, "commit": 1, "abort": 0,
+                                  "plain": 1}
+            else:
+                with pytest.raises(eos.EosError, match="lz4 shrinks"):
+                    eos.eos_stored(cluster, 1, det=False)
+        finally:
+            cluster.stop()

@@ -3,7 +3,9 @@ and the interest-set metadata) on the port: the client's ``FetchSession``
 epoch protocol, the consumer's session over its life (negotiation,
 forgotten partitions, seek, both session errors, a cooperative
 rebalance, the sessionless knob), the conf knobs, the mock broker's
-session cache and the Metadata null-versus-empty topic list.
+session cache and the Metadata null-versus-empty topic list; and two
+many-partition cases of the port alone (a large assign joins its
+session; the producer serves only the partitions it produced to).
 
 The unit, conf, mock and metadata cases compare the port's results with
 the JAX package's on the same input.  The consumer cases fetch through
@@ -285,6 +287,77 @@ def test_sessionless_when_disabled():
             cluster.stop()
     port, ref = both(scenario)
     assert port == ref == [10, True, []]
+
+
+
+def test_every_partition_of_a_large_assign_joins_the_session():
+    """A partition that turns fetchable while a session request is out
+    rides an immediate-return overflow fetch queued behind it; the mock
+    answers one connection's requests in order, so the session response
+    lands first.  The next session build waits for the overflow fetch,
+    so every partition folds into the book.  (Both packages built it at
+    once and left the overflow's partitions out of the book every epoch:
+    a 10,000-partition assign kept thousands out for good.  Repaired in
+    the port; the JAX package keeps it.)"""
+    n, with_data = 10_000, 256
+    cluster = PORT.MockCluster(num_brokers=1, topics={TOPIC: n})
+    try:
+        # the CPU provider: the codec route is not what this case holds
+        p = PORT.Producer({"bootstrap.servers": cluster.bootstrap_servers(),
+                           "linger.ms": 2})
+        for i in range(4 * with_data):
+            p.produce(TOPIC, value=b"m%04d" % i, partition=i % with_data)
+        assert p.flush(30.0) == 0
+        p.close()
+        c = PORT.Consumer({
+            "bootstrap.servers": cluster.bootstrap_servers(),
+            "group.id": "fs-large", "auto.offset.reset": "earliest"})
+        try:
+            c.assign([PORT.TopicPartition(TOPIC, i) for i in range(n)])
+            assert len(_consume(c, 4 * with_data, 60.0)) == 4 * with_data
+            deadline = time.monotonic() + 30
+            booked = 0
+            while booked < n and time.monotonic() < deadline:
+                c.poll(0.1)
+                booked = sum(len(fs.book) for fs in _sessions(c))
+            assert booked == n, f"{booked} of {n} partitions in the book"
+        finally:
+            c.close()
+    finally:
+        cluster.stop()
+
+
+
+def test_producer_serve_touches_only_produced_partitions(monkeypatch):
+    """The producer's serve pass walks the partitions with work (the
+    client's active index), not every partition metadata registered:
+    producing to 8 partitions of a 10,000-partition topic moves no queue
+    of the other 9,992.  (Both packages walked all of them each pass,
+    which held a 100,000-partition producer to hundreds of msgs/s on the
+    card; repaired in the port.)"""
+    from librdkafka_tpu_torch.client.partition import Toppar
+    moved: dict = {}
+    xmit_move = Toppar.xmit_move
+
+    def counting(tp):
+        moved[tp.partition] = moved.get(tp.partition, 0) + 1
+        return xmit_move(tp)
+    monkeypatch.setattr(Toppar, "xmit_move", counting)
+    cluster = PORT.MockCluster(num_brokers=1, topics={TOPIC: 10_000})
+    try:
+        p = PORT.Producer({"bootstrap.servers": cluster.bootstrap_servers(),
+                           "linger.ms": 2})
+        try:
+            for i in range(2_000):
+                p.produce(TOPIC, value=b"m%04d" % i, partition=i % 8)
+            assert p.flush(30.0) == 0
+        finally:
+            p.close()
+        assert set(moved) <= set(range(8)), f"{len(moved)} queues moved"
+        assert sum(cluster.partition(TOPIC, i).end_offset
+                   for i in range(8)) == 2_000
+    finally:
+        cluster.stop()
 
 
 # ================================================== the conf knobs ==

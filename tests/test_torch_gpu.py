@@ -16,7 +16,9 @@ C ABI (capi/gpu_smoke.c through libtkafka.so) on the card, the
 exactly-once copy of chip_smoke.py phase 10, the delivery path and
 consumer API of its phase 11, and a traced produce whose device_launch
 spans match the CRC kernel's launches, and the linger-0 leg and codec
-matrix of its phase 14, each at a small size.  Marked
+matrix of its phase 14, each at a small size, and each leg of the
+port's bench (``python -m librdkafka_tpu_torch.bench``) that its phase
+15 does not run, at its --smoke size.  Marked
 ``gpu``; each skips on a host without CUDA.  On a card
 (tests/conftest.py imports jax, which the GPU host lacks):
 
@@ -834,3 +836,57 @@ def test_latency_load_leg_a_and_codecs_on_card(card):
     out = chip_smoke.p14_codecs(kit, backend, chip_smoke.P14_LEGS, 4, 400,
                                 "cuda", "card test")
     assert out["counts"]["crc_rows"] > 0 and out["counts"]["lz4_rows"] > 0
+
+
+# ------------------------------------------------------------- bench --
+
+#: every leg of ``python -m librdkafka_tpu_torch.bench`` that chip_smoke.py
+#: phase 15 does not run, at its --smoke size: (flags, env, check)
+BENCH_LEGS = {
+    "pipeline": (["--pipeline"], {},
+                 lambda a: a["engine"]["engine_stats"]["launches"] > 0),
+    "fetch-pipeline": (["--fetch-pipeline"], {},
+                       lambda a: "error" not in a["engine"]),
+    "governor": (["--governor"], {},
+                 lambda a: a["fused"]["halved"] and a["cold_start"]
+                 ["first_device_launch_s"] is not None),
+    "codec-device": (["--codec-device", "--smoke"], {},
+                     lambda a: all(b["bit_exact"]
+                                   for b in a["buckets"].values())
+                     and a["warm_gate"]["first_device_launch_s"]
+                     is not None),
+    "txn": (["--txn"], {"BENCH_TXN_MSGS": "20000"},
+            lambda a: a["txn_commit_msgs_s"] > 0),
+    "partitions": (["--partitions", "--smoke"], {}, lambda a: a["ok"]),
+    "mesh": (["--mesh"], {"BENCH_MESH_SUBS": "2"},
+             lambda a: a["wire_bitexact"] and all(
+                 leg["launches"] > 0 for leg in a["legs"].values())),
+    "chaos": (["--chaos"], {}, lambda a: a["ok"]),
+    "rebalance": (["--rebalance", "--smoke"], {}, lambda a: a["ok"]),
+    "fleet": (["--fleet", "--smoke"], {}, lambda a: a["ok"]),
+}
+
+
+@pytest.mark.parametrize("leg", list(BENCH_LEGS))
+def test_bench_leg_on_card(card, leg, tmp_path):
+    """One leg of the port's bench on the card at its --smoke size, as a
+    user runs it: exit 0, an artifact naming the card, the leg's own
+    check; the bench's legs assert their bit-exactness themselves."""
+    import json
+    import os
+    import subprocess
+    import sys
+    flags, env, ok = BENCH_LEGS[leg]
+    out = tmp_path / "leg.json"
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run(
+        [sys.executable, "-m", "librdkafka_tpu_torch.bench", *flags,
+         "--json", str(out)], cwd=root, capture_output=True, text=True,
+        env={**os.environ, "BENCH_TREND_PATH": str(tmp_path / "t.jsonl"),
+             **env}, timeout=600)
+    assert r.returncode == 0, r.stderr[-4000:]
+    art = json.loads(out.read_text())
+    assert art["device"]["platform"] == "gpu"
+    failed = {k: v for k, v in (art.get("legs") or {}).items()
+              if isinstance(v, dict) and v.get("ok") is False}
+    assert ok(art), failed or art
