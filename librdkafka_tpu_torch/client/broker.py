@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import enum
 import errno
+import queue as _stdqueue
 import random
 import select
 import socket
@@ -32,6 +33,7 @@ from typing import Callable, Optional, TYPE_CHECKING
 from ..obs import trace as _trace
 from ..analysis import lockdep as _lockdep
 from ..analysis.races import shared
+from ..ops import cpu as _cpu_ops
 from ..ops.cpu import SyncTicket
 from ..ops.packing import FrameBlob
 from ..protocol import apis, proto
@@ -79,6 +81,84 @@ class Request:
 # max in-flight ProduceRequests per partition with idempotence
 # (reference: RD_KAFKA_IDEMP_MAX_INFLIGHT, rdkafka_idempotence.h:38)
 IDEMP_MAX_INFLIGHT = 5
+
+#: what ended a serve pass's wait (stats ``brokers.{name}.woke``): the
+#: wakeup pipe or op queue, the socket readable or writable, the wait's
+#: timeout, or no wait at all
+PASS_WOKE = ("pipe", "read", "write", "timeout", "none")
+#: ops a serve pass handles, by kind (stats ``brokers.{name}.ops``)
+PASS_OPS = ("codec_done", "xmit", "wakeup", "other")
+
+
+class _CpuTally:
+    """While tracing: one thread's CPU (``time.thread_time_ns``) by phase
+    of its passes, emitted every ``EVERY_NS`` as a zero-length event
+    (``pass_tally`` / ``codec_tally``, CPU_ACCOUNTING.md) with the owner's
+    counters since the previous one.  The clock runs on from pass to
+    pass, so the thread's CPU between passes lands in the next pass's
+    first phase; a pass that did nothing puts all of its CPU under
+    ``idle``."""
+
+    __slots__ = ("cat", "name", "first", "cur", "mark", "pass_cpu", "cpu",
+                 "t_start", "base")
+
+    EVERY_NS = 100_000_000
+
+    def __init__(self, cat: str, name: str, first: str, counts: dict):
+        _cpu_ops.pool_cpu_take()    # pool CPU from before tracing began
+        self.cat, self.name, self.first = cat, name, first
+        self.cur = first
+        self.pass_cpu: dict = {}
+        self.cpu: dict = {}
+        self.t_start = _trace.now()
+        self.base = counts
+        self.mark = time.thread_time_ns()
+
+    def switch(self, phase: str) -> str:
+        """Charge the CPU since the last switch to the current phase and
+        enter ``phase``; returns the phase left."""
+        t = time.thread_time_ns()
+        pc = self.pass_cpu
+        pc[self.cur] = pc.get(self.cur, 0) + t - self.mark
+        self.mark = t
+        prev, self.cur = self.cur, phase
+        return prev
+
+    def end_pass(self, idle: bool, counts) -> None:
+        """Close the pass; ``counts()`` gives the owner's counters when
+        an event is due."""
+        self.switch(self.first)
+        pc, self.pass_cpu = self.pass_cpu, {}
+        cpu = self.cpu
+        if idle:
+            cpu["idle"] = cpu.get("idle", 0) + sum(pc.values())
+        else:
+            for k, v in pc.items():
+                cpu[k] = cpu.get(k, 0) + v
+        if _trace.now() - self.t_start >= self.EVERY_NS:
+            self.emit(counts())
+
+    def emit(self, counts: dict) -> None:
+        """The event: the counters' deltas since the previous one, the
+        CPU by phase, the native pool's CPU, ``t_start`` (trace us) and
+        ``dropped``, the events this thread's ring has overwritten so
+        far (a reader that sees it grow between two tallies knows the
+        trail between them may have lost some)."""
+        args = {"t_start": self.t_start / 1e3}
+        for k, v in counts.items():
+            b = self.base[k]
+            args[k] = ({kk: vv - b[kk] for kk, vv in v.items()}
+                       if isinstance(v, dict) else v - b)
+        args["cpu_ns"] = self.cpu
+        args["pool_cpu_ns"] = _cpu_ops.pool_cpu_take()
+        if _trace.enabled:
+            args["dropped"] = _trace.thread_dropped()
+            # zero length: the benchmark's gap labels take the span open
+            # at a gap's middle, which a tally never is
+            _trace.evt(self.cat, self.name, "X", dur=0, args=args)
+        self.cpu = {}
+        self.base = counts
+        self.t_start = _trace.now()
 
 
 class _FusedJob:
@@ -424,9 +504,8 @@ class CodecWorker(threading.Thread):
 
     def __init__(self, rk):
         super().__init__(daemon=True, name="rdk:codec")
-        import queue as _q
         self.rk = rk
-        self.jobs = _q.Queue()
+        self.jobs = _stdqueue.Queue()
         # max codec jobs whose CRC tickets may be outstanding before
         # the worker blocks on the oldest — mirrors the broker-side
         # codec.pipeline.depth gate so results can't pile up unbounded
@@ -435,6 +514,10 @@ class CodecWorker(threading.Thread):
         # test/bench observability: high-water mark of concurrently
         # in-flight async CRC tickets (>=2 proves pipeline overlap)
         self.inflight_hwm = 0
+        # loop turns: each takes a job or resolves a ticket (with
+        # tickets in flight the poll ends in resolving the oldest;
+        # without them the worker blocks until a job comes)
+        self.c_turns = 0
         self.start()
 
     def submit(self, broker: "Broker", ready: list,
@@ -462,6 +545,9 @@ class CodecWorker(threading.Thread):
         broker, pending, ts_codec, pepoch = entry
         self._post(broker, pending.finish(), ts_codec, pepoch)
 
+    def _counts(self) -> dict:
+        return {"passes": self.c_turns}
+
     def _run(self):
         """Pipelined consume loop: phase-2 work whose CRC went to the
         async offload engine parks in ``pending`` as a ticket; the
@@ -471,9 +557,17 @@ class CodecWorker(threading.Thread):
         _run_codec_phase for every device round-trip).  ``pending``
         drains strictly FIFO so per-partition send order — and with it
         idempotent sequence order — is preserved."""
-        import queue as _q
         pending: deque = deque()
+        tally: Optional[_CpuTally] = None   # while tracing (codec_tally)
         while True:
+            if tally is not None:
+                tally.end_pass(False, self._counts)     # the last turn
+            if not _trace.enabled:
+                tally = None
+            elif tally is None:
+                tally = _CpuTally("codec", "codec_tally", "busy",
+                                  self._counts())
+            self.c_turns += 1
             # reap resolved tickets (FIFO — stop at the first unresolved)
             while pending and pending[0][1].done():
                 self._finish(pending.popleft())
@@ -484,13 +578,16 @@ class CodecWorker(threading.Thread):
                 # with tickets in flight, poll briefly so the next job
                 # overlaps the device; idle otherwise blocks for real
                 job = self.jobs.get(timeout=0.002 if pending else None)
-            except _q.Empty:
+            except _stdqueue.Empty:
                 if pending:
                     self._finish(pending.popleft())
                 continue
             if job is None:
                 while pending:
                     self._finish(pending.popleft())
+                if tally is not None:
+                    tally.end_pass(False, self._counts)
+                    tally.emit(self._counts())
                 return
             broker, ready, ts_codec, pepoch = job
             try:
@@ -538,6 +635,15 @@ class Broker:
     _fetch_session = shared("broker.fetch_session", relaxed=True)
     c_fetch_tx_bytes = shared("broker.c_fetch_tx_bytes", relaxed=True)
     c_fetch_rx_bytes = shared("broker.c_fetch_rx_bytes", relaxed=True)
+    # serve-pass accounting: counted on the serve thread, snapshot-read
+    # by the stats emitter like the counters above
+    c_wakeups = shared("broker.c_wakeups", relaxed=True)
+    c_idle_wakeups = shared("broker.c_idle_wakeups", relaxed=True)
+    # the serve pass in progress (reset by each pass): what it did, what
+    # ended its wait, and while tracing its CPU tally
+    _pass_work = 0
+    _pass_woke = "none"
+    _tally: Optional[_CpuTally] = None
 
     def __init__(self, rk: "Kafka", nodeid: int, host: str, port: int,
                  name: str = ""):
@@ -607,6 +713,12 @@ class Broker:
         # (stats: brokers[].fetch_session + top-level wire_fetch_bytes)
         self.c_fetch_tx_bytes = 0
         self.c_fetch_rx_bytes = 0
+        # serve passes (upstream's `wakeups`), the passes that did
+        # nothing, what ended each pass's wait, and the ops served by
+        # kind (CPU_ACCOUNTING.md)
+        self.c_wakeups = self.c_idle_wakeups = 0
+        self.c_woke = dict.fromkeys(PASS_WOKE, 0)
+        self.c_ops = dict.fromkeys(PASS_OPS, 0)
         # KIP-227 incremental fetch session with this broker
         # (client/fetch_session.py); torn down on disconnect
         from .fetch_session import FetchSession
@@ -675,18 +787,41 @@ class Broker:
             self._wakeup()
 
     # --------------------------------------------------------- the thread --
+    def _pass_counts(self) -> dict:
+        return {"passes": self.c_wakeups, "idle_passes": self.c_idle_wakeups,
+                "woke": dict(self.c_woke), "ops": dict(self.c_ops)}
+
     def _thread_main(self):
         if self.rk.interceptors:
             self.rk.interceptors.on_thread_start("broker", self.name)
         while not self.terminate:
+            tally = self._tally
+            if _trace.enabled:
+                if tally is None:
+                    tally = self._tally = _CpuTally(
+                        "broker", "pass_tally", "ops", self._pass_counts())
+            elif tally is not None:
+                tally = self._tally = None
+            self._pass_work = 0
+            self._pass_woke = "none"
             try:
                 self._serve()
             except Exception as e:  # keep the broker thread alive
+                self._pass_work += 1
                 self.rk.log("ERROR", f"broker {self.name} serve error: {e!r}")
                 self._disconnect(KafkaError(Err._FAIL, repr(e)))
                 # error backoff, not a wait-for-state: nothing signals
                 # "the fault cleared", so there is no condvar to wait on
                 time.sleep(0.05)  # lint: ok sleep-poll
+            self.c_wakeups += 1
+            if not self._pass_work:
+                self.c_idle_wakeups += 1
+            self.c_woke[self._pass_woke] += 1
+            if tally is not None:
+                tally.end_pass(not self._pass_work, self._pass_counts)
+        if self._tally is not None:
+            self._tally.emit(self._pass_counts())
+            self._tally = None
         self._disconnect(KafkaError(Err._DESTROY, "terminating"))
         # release deferred partitions' in-flight claims so another
         # broker (or a later instance) can fetch them.  Guarded: close()
@@ -707,13 +842,19 @@ class Broker:
 
     def _serve(self):
         now = time.monotonic()
+        # while tracing, the pass's CPU by phase (CPU_ACCOUNTING.md)
+        tally = self._tally
         # deferred fetch partitions need no socket — drain them FIRST
         # so a DOWN/backing-off/sparse-idle broker still delivers what
         # it already received (their toppars hold fetch_in_flight until
         # processed, so leaving them parked would starve the partitions
         # on every broker)
         if self._fetch_deferred or self._fetch_pending:
+            if tally is not None:
+                tally.switch("fetch")
             self._serve_deferred_fetch()
+            if tally is not None:
+                tally.switch("ops")
         if self.state in (BrokerState.INIT, BrokerState.DOWN):
             # sparse connections (reference enable.sparse.connections,
             # hidden, default true; rdkafka_broker.c:880): a metadata-
@@ -734,13 +875,23 @@ class Broker:
         if self._tls_handshaking:
             self._tls_handshake_serve()
             return
+        if tally is not None:
+            tally.switch("scan")
         self._serve_retries(now)
         if self.state == BrokerState.UP:
             if self.rk.is_producer:
+                if tally is not None:
+                    tally.switch("produce")
                 self._producer_serve(now)
             if self.rk.is_consumer:
+                if tally is not None:
+                    tally.switch("fetch")
                 self._consumer_serve(now)
+        if tally is not None:
+            tally.switch("wait")
         self._io_serve()
+        if tally is not None:
+            tally.switch("scan")
         self._scan_timeouts(now)
 
     def _serve_ops(self, timeout: float):
@@ -751,7 +902,9 @@ class Broker:
                 if timeout > 0 and time.monotonic() < deadline:
                     op = self.ops.pop(deadline - time.monotonic())
                     if op is None:
+                        self._pass_woke = "timeout"
                         return
+                    self._pass_woke = "pipe"
                 else:
                     return
             self._op_serve(op)
@@ -759,6 +912,11 @@ class Broker:
 
     def _op_serve(self, op: Op):
         """(reference: rd_kafka_broker_op_serve, rdkafka_broker.c:2597)"""
+        self._pass_work += 1
+        if op.type == OpType.BROKER_WAKEUP:
+            self.c_ops[op.payload[0] if op.payload else "wakeup"] += 1
+        else:
+            self.c_ops["other"] += 1
         if op.type == OpType.TERMINATE:
             self.terminate = True
         elif op.type == OpType.PURGE:
@@ -846,10 +1004,12 @@ class Broker:
         try:
             self.sock.do_handshake()
         except _ssl.SSLWantReadError:
-            select.select([self.sock], [], [], 0.05)
+            r, _, _ = select.select([self.sock], [], [], 0.05)
+            self._pass_woke = "read" if r else "timeout"
             return
         except _ssl.SSLWantWriteError:
-            select.select([], [self.sock], [], 0.05)
+            _, w, _ = select.select([], [self.sock], [], 0.05)
+            self._pass_woke = "write" if w else "timeout"
             return
         except (OSError, _ssl.SSLError) as e:
             self._disconnect(KafkaError(Err._SSL, f"TLS handshake: {e}"))
@@ -1077,7 +1237,13 @@ class Broker:
             if not req.abs_timeout:
                 req.abs_timeout = time.monotonic() + \
                     self.rk.conf.get("socket.timeout.ms") / 1000.0
-        self._flush_wbuf()
+        tally = self._tally
+        if tally is None:
+            self._flush_wbuf()
+        else:
+            prev = tally.switch("send")
+            self._flush_wbuf()
+            tally.switch(prev)
 
     def _flush_wbuf(self):
         # scatter-gather drain: request segments (incl. spliced
@@ -1085,7 +1251,9 @@ class Broker:
         # copy, no consumed-prefix memmove
         if not self.sock or not self._wbuf.pending():
             return
-        _n, _blocked, err = self._wbuf.send(self.sock)
+        n, _blocked, err = self._wbuf.send(self.sock)
+        if n:
+            self._pass_work += 1
         if err is not None:
             self._disconnect(KafkaError(Err._TRANSPORT,
                                         f"send failed: {err}"))
@@ -1099,11 +1267,16 @@ class Broker:
         (reference: rd_kafka_transport_io_serve, rdkafka_transport.c:795)."""
         rlist = [self._wakeup_r]
         wlist = []
+        tally = self._tally
         if self.sock:
             # decrypted TLS bytes may already be buffered in the SSL
             # layer where select() cannot see them
             if isinstance(self.sock, _ssl.SSLSocket) and self.sock.pending():
+                if tally is not None:
+                    tally.switch("recv")
                 self._recv()
+                if tally is not None:
+                    tally.switch("wait")
                 timeout = 0
             if self.sock is None:    # _recv may have disconnected
                 return
@@ -1116,6 +1289,10 @@ class Broker:
             r, w, _ = select.select(rlist, wlist, [], timeout)
         except (OSError, ValueError):
             return
+        # what ended the wait: the first ready of read, write, the pipe
+        self._pass_woke = ("read" if self.sock in r else "write" if w
+                           else "pipe" if r
+                           else "timeout" if timeout > 0 else "none")
         if self._wakeup_r in r:
             try:
                 while self._wakeup_r.recv(4096):
@@ -1123,8 +1300,12 @@ class Broker:
             except (BlockingIOError, OSError):
                 pass
         if self.sock in w:
+            if tally is not None:
+                tally.switch("send")
             self._flush_wbuf()
         if self.sock and self.sock in r:
+            if tally is not None:
+                tally.switch("recv")
             self._recv()
 
     def _recv(self):
@@ -1158,6 +1339,7 @@ class Broker:
                 break
         if not got:
             return
+        self._pass_work += 1
         self.c_rx_bytes += got
         # offset-based frame walk: ONE buffer compaction per recv burst
         # instead of a memmove per response
@@ -1226,12 +1408,14 @@ class Broker:
             return
         due = [r for t, r in self.retryq if t <= now]
         self.retryq = [(t, r) for t, r in self.retryq if t > now]
+        self._pass_work += len(due)
         for req in due:
             self._xmit(req)
 
     def _scan_timeouts(self, now: float):
         timed_out = [c for c, r in self.waitresp.items()
                      if r.abs_timeout and now > r.abs_timeout]
+        self._pass_work += len(timed_out)
         for c in timed_out:
             req = self.waitresp.pop(c)
             self.c_req_timeouts += 1
@@ -1382,7 +1566,8 @@ class Broker:
                         _trace.complete("produce", "run_take", t0,
                                         {"topic": tp.topic,
                                          "partition": tp.partition,
-                                         "msgs": b.count})
+                                         "msgs": b.count,
+                                         "batch": b.msgid_base})
                     ready.append((tp, b,
                                   None if legacy else
                                   self._make_writer(tp, b, self._codec_for(tp, codec))))
@@ -1428,6 +1613,7 @@ class Broker:
 
         if not ready:
             return
+        self._pass_work += 1
         if t_assembly:
             # spans only when batches actually formed: the idle serve
             # pass must not flood the ring
@@ -1566,7 +1752,8 @@ class Broker:
                 _trace.complete("produce", "native_frame", t0,
                                 {"topic": tp.topic,
                                  "partition": tp.partition,
-                                 "msgs": msgs.count})
+                                 "msgs": msgs.count,
+                                 "batch": msgs.msgid_base})
         else:
             # Message duck-types Record (key/value/headers/timestamp) —
             # no per-message conversion on the hot path
@@ -1636,7 +1823,8 @@ class Broker:
             _trace.complete("produce", "produce_tx", t_tx,
                             {"topic": tp.topic,
                              "partition": tp.partition,
-                             "bytes": len(wire)})
+                             "bytes": len(wire),
+                             "batch": batch_head_msgid(msgs)})
         if acks == 0:
             tp.release_inflight(msgs)
             if not isinstance(msgs, ArenaBatch):
@@ -1653,15 +1841,23 @@ class Broker:
         rebase can never observe inflight==0 while this batch is still
         unresolved."""
         if t_tx_ns and _trace.enabled:
-            # tx -> ack/DR span (the wire round trip of this batch)
+            # tx -> response read (the wire round trip of this batch)
             _trace.complete("produce", "ack", t_tx_ns,
                             {"topic": tp.topic, "partition": tp.partition,
                              "err": (err.code.name if err is not None
-                                     else None)})
+                                     else None),
+                             "batch": batch_head_msgid(msgs)})
+        t_dr = _trace.now() if _trace.enabled else 0
         try:
             self._handle_produce0(tp, msgs, err, resp, t_tx_ns)
         finally:
             tp.release_inflight(msgs)
+            if t_dr:
+                # the response's own work: DR / retry / idempotence
+                _trace.complete("produce", "dr", t_dr,
+                                {"topic": tp.topic,
+                                 "partition": tp.partition,
+                                 "batch": batch_head_msgid(msgs)})
 
     def _gapless_fatal(self, tp, kerr: KafkaError) -> Optional[KafkaError]:
         """enable.gapless.guarantee: any permanently failed message in an
@@ -2238,6 +2434,7 @@ class Broker:
                 queued += self._reap_fetch_pending(block=True)
                 continue
             entry = self._fetch_deferred.popleft()
+            self._pass_work += 1
             tp = entry[0]
             if tp not in self.toppars:
                 tp.fetch_in_flight = False   # migrated while deferred
@@ -2266,6 +2463,7 @@ class Broker:
                                        or self._fetch_pending[0].done()):
             block = False
             pend = self._fetch_pending.popleft()
+            self._pass_work += 1
             tp = pend.entry[0]
             with tp.lock:
                 before = tp.fetchq_bytes

@@ -121,6 +121,12 @@ class StatsCollector:
                 "tx": b.c_tx, "txbytes": b.c_tx_bytes,
                 "rx": b.c_rx, "rxbytes": b.c_rx_bytes,
                 "req_timeouts": b.c_req_timeouts,
+                # the serve thread's passes: all, those that did nothing,
+                # what ended each one's wait, the ops served by kind
+                "wakeups": b.c_wakeups,
+                "idle_wakeups": b.c_idle_wakeups,
+                "woke": dict(b.c_woke),
+                "ops": dict(b.c_ops),
                 # latency decomposition (STATISTICS.md broker window stats)
                 "rtt": b.rtt_avg.rollover(),
                 "outbuf_latency": b.outbuf_avg.rollover(),

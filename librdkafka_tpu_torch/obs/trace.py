@@ -116,6 +116,11 @@ class _Ring:
             out = buf[i:] + buf[:i]
         return [e for e in out if e is not None]
 
+    @property
+    def dropped(self) -> int:
+        """Events this ring has overwritten (its oldest, once full)."""
+        return max(0, self._pos - self.cap)
+
 
 def now() -> int:
     """Monotonic nanoseconds — the trace timebase."""
@@ -218,7 +223,8 @@ def _collect() -> list[dict]:
     out = []
     for r in rings:
         out.append({"name": "thread_name", "ph": "M", "pid": pid,
-                    "tid": r.tid, "args": {"name": r.thread_name}})
+                    "tid": r.tid, "args": {"name": r.thread_name,
+                                           "dropped": r.dropped}})
         for ts_ns, cat, name, ph, dur_ns, args in r.snapshot():
             e = {"name": name, "cat": cat, "ph": ph, "pid": pid,
                  "tid": r.tid, "ts": ts_ns / 1e3}
@@ -231,6 +237,24 @@ def _collect() -> list[dict]:
             out.append(e)
     out.sort(key=lambda e: e.get("ts", 0))
     return out
+
+
+def dropped() -> dict:
+    """Events overwritten so far in each thread's ring, by thread name
+    (rings of one name summed): a count that a dump, or a reader of
+    ``collect_events()``, is missing from the start of that thread's
+    trail."""
+    with _lock:
+        rings = list(_rings)
+    out: dict[str, int] = {}
+    for r in rings:
+        out[r.thread_name] = out.get(r.thread_name, 0) + r.dropped
+    return out
+
+
+def thread_dropped() -> int:
+    """Events overwritten so far in the calling thread's ring."""
+    return _get_ring().dropped
 
 
 def collect_events() -> list[dict]:

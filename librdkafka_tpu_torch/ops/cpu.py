@@ -78,8 +78,18 @@ def lib() -> ctypes.CDLL:
         L.tk_snappy_uncompressed_length.argtypes = [ctypes.c_char_p, i64]
         L.tk_lz4f_decompressed_size.restype = i64
         L.tk_lz4f_decompressed_size.argtypes = [ctypes.c_char_p, i64]
+        L.tk_pool_cpu_take.restype = i64
+        L.tk_pool_cpu_take.argtypes = []
         _lib = L
     return _lib
+
+
+def pool_cpu_take() -> int:
+    """CPU nanoseconds that the worker threads of this thread's native
+    ``*_many`` calls spent since its previous take (the threads exit
+    before the call returns, so no per-thread reading outside sees
+    them); zeroes the account.  0 before the library is loaded."""
+    return 0 if _lib is None else int(_lib.tk_pool_cpu_take())
 
 
 def _outbuf(cap: int):

@@ -81,6 +81,7 @@ from ..analysis.locks import new_cond, new_lock
 from ..analysis.races import register_slots, shared, shared_dict
 from ..obs import metrics as _metrics
 from ..obs import trace as _trace
+from . import cpu as _cpu_ops
 from . import crc32c_torch as _crc
 from . import lz4_torch as _lz4
 from ..parallel import mesh as _mesh
@@ -646,7 +647,15 @@ class AsyncOffloadEngine:
              "warmup_compiled": 0, "routed_cpu_jobs": 0,
              "explore_routes": 0, "fused_launches": 0,
              # launches split over every lane (the whole-mesh route)
-             "sharded_launches": 0})
+             "sharded_launches": 0,
+             # the dispatch loop's turns
+             "turns": 0,
+             # thread CPU, counted only while tracing: every turn, the
+             # readbacks' device waits, the host work (host jobs,
+             # CPU-served groups), and the native pool threads that
+             # host work started
+             "turn_cpu_ns": 0, "sync_cpu_ns": 0, "host_cpu_ns": 0,
+             "native_pool_cpu_ns": 0})
         # the device compress route's counters, kept apart from the CRC
         # stats (same discipline: dispatch-thread writes, snapshot reads)
         self.compress_stats = shared_dict("engine.compress_stats",
@@ -1062,7 +1071,17 @@ class AsyncOffloadEngine:
                 lane.inflight.clear()
 
     def _main_loop(self):
+        traced = False              # the previous turn ran traced
         while True:
+            tr = _trace.enabled
+            if tr:
+                if not traced:
+                    # pool CPU from before tracing is nobody's to count
+                    _cpu_ops.pool_cpu_take()
+                c0 = time.thread_time_ns()
+            traced = tr
+            stats = self.stats
+            stats["turns"] += 1
             with self._cond:
                 if not self._queue and not self._closed:
                     # with launches in flight, linger only briefly: a
@@ -1090,13 +1109,16 @@ class AsyncOffloadEngine:
                             self._inflight_cnt = self._inflight_total()
                             self._readback(lane.inflight.popleft())
                     self._inflight_cnt = self._inflight_total()
-                continue            # re-check the queue before syncing
-            lane = self._oldest_lane()
-            if lane is not None:
-                # nothing new queued: drain completed work rather than
-                # hold results hostage waiting for more submissions
-                self._readback(lane.inflight.popleft())
-                self._inflight_cnt = self._inflight_total()
+            else:
+                lane = self._oldest_lane()
+                if lane is not None:
+                    # nothing new queued: drain completed work rather
+                    # than hold results hostage waiting for more
+                    # submissions
+                    self._readback(lane.inflight.popleft())
+                    self._inflight_cnt = self._inflight_total()
+            if tr:
+                stats["turn_cpu_ns"] += time.thread_time_ns() - c0
 
     def _pop_jobs_locked(self) -> list[_Job]:
         jobs = list(self._queue)
@@ -1197,8 +1219,10 @@ class AsyncOffloadEngine:
                 job = group[0]
                 self.stats["host_jobs"] += 1
                 t0 = _trace.now() if _trace.enabled else 0
+                c0 = time.thread_time_ns() if t0 else 0
                 job.ticket._complete(job.fn(*job.args))
                 if t0:
+                    self._note_host_cpu(c0)
                     _trace.complete(
                         "engine", "host_job", t0,
                         {"fn": getattr(job.fn, "__name__", "host")})
@@ -1230,12 +1254,19 @@ class AsyncOffloadEngine:
             rec.event.record(stream)
         return rec
 
+    def _note_host_cpu(self, c0: int) -> None:
+        """Tracing: the thread CPU of host work begun at thread clock
+        ``c0``, and what the native pool's threads spent for it."""
+        self.stats["host_cpu_ns"] += time.thread_time_ns() - c0
+        self.stats["native_pool_cpu_ns"] += _cpu_ops.pool_cpu_take()
+
     def _serve_cpu(self, group: list[_Job], counter: str) -> None:
         """Serve a group on the CPU provider (bit-identical), timing it
         into the governor's CPU cost estimate."""
         self.stats[counter] += len(group)
         t0 = time.perf_counter()
         tr0 = _trace.now() if _trace.enabled else 0
+        c0 = time.thread_time_ns() if tr0 else 0
         nbytes = 0
         for j in group:
             try:
@@ -1246,6 +1277,7 @@ class AsyncOffloadEngine:
                 j.ticket._fail(e)
         self.governor.note_cpu(nbytes, time.perf_counter() - t0)
         if tr0:
+            self._note_host_cpu(c0)
             _trace.complete("engine", "cpu_serve", tr0,
                             {"route": "cpu", "reason": counter,
                              "jobs": len(group), "bytes": nbytes})
@@ -1258,6 +1290,7 @@ class AsyncOffloadEngine:
         self.compress_stats[counter] += len(group)
         t0 = time.perf_counter()
         tr0 = _trace.now() if _trace.enabled else 0
+        c0 = time.thread_time_ns() if tr0 else 0
         nbytes = 0
         for j in group:
             try:
@@ -1268,6 +1301,7 @@ class AsyncOffloadEngine:
             self.governor.note_qos(j.topics, shed=shed)
         self.governor.note_cpu_compress(nbytes, time.perf_counter() - t0)
         if tr0:
+            self._note_host_cpu(c0)
             _trace.complete("engine", "cpu_serve", tr0,
                             {"route": "cpu", "reason": counter,
                              "kind": "compress", "jobs": len(group),
@@ -1678,8 +1712,11 @@ class AsyncOffloadEngine:
         try:
             if rec.kind == "compute":
                 t0 = _trace.now() if _trace.enabled else 0
+                c0 = time.thread_time_ns() if t0 else 0
                 if rec.event is not None:
                     rec.event.synchronize()
+                if t0:
+                    self.stats["sync_cpu_ns"] += time.thread_time_ns() - c0
                 rec.ticket._complete(_to_host(rec.out_tree))
                 if t0:
                     _trace.complete("engine", "readback", t0,
@@ -1703,11 +1740,14 @@ class AsyncOffloadEngine:
         strictly smaller) picks its CRC for free and the v2 batch CRC is
         a host-side combine away (FrameBlob.region_crc)."""
         tr0 = _trace.now() if _trace.enabled else 0
+        c0 = time.thread_time_ns() if tr0 else 0
         try:
             parts = [_lz4.read_lz4(slot, plan, handle, rec.lane.rb_stream)
                      for slot, plan, handle in rec.chunks]
         finally:
             rec.lane.staging.give_back([c[0] for c in rec.chunks])
+        if tr0:
+            self.stats["sync_cpu_ns"] += time.thread_time_ns() - c0
         if rec.t0 is not None:
             dt = time.perf_counter() - rec.t0
             self.governor.note_device_compress(rec.bucket, dt,
@@ -1744,6 +1784,7 @@ class AsyncOffloadEngine:
 
     def _readback_crc(self, rec: _Launch) -> None:
         tr0 = _trace.now() if _trace.enabled else 0
+        c0 = time.thread_time_ns() if tr0 else 0
         # ONE event wait + vectorized uint32 view per launch (per shard
         # of a sharded one, every shard waited before any ticket
         # resolves) — no per-item int(x) loop
@@ -1752,6 +1793,8 @@ class AsyncOffloadEngine:
                      for slot, plan, _ in rec.chunks]
         finally:
             self._give_back(rec)
+        if tr0:
+            self.stats["sync_cpu_ns"] += time.thread_time_ns() - c0
         crcs = (parts[0] if len(parts) == 1 else
                 np.concatenate(parts) if parts else
                 np.zeros(0, dtype=np.uint32))

@@ -851,6 +851,48 @@ EXPORT int64_t tk_frame_v2_run(const uint8_t *base, const int32_t *klens,
 #include <thread>
 #include <atomic>
 #include <vector>
+#include <time.h>
+
+// The CPU the pool's worker threads spent, per calling thread: each
+// worker reads its own thread clock once as it finishes, and the caller
+// adds the sum here after the join.  Those threads have exited by the
+// time anything outside could read them (/proc/self/task), so this is
+// the only record of their CPU; tk_pool_cpu_take() hands it over.
+static thread_local int64_t tl_pool_cpu_ns = 0;
+
+static inline int64_t thread_cpu_ns() {
+    timespec ts;
+    clock_gettime(CLOCK_THREAD_CPUTIME_ID, &ts);
+    return (int64_t)ts.tv_sec * 1000000000 + ts.tv_nsec;
+}
+
+// The CPU nanoseconds of the pool workers that the calling thread's
+// *_many calls started since its last take; zeroes the account.
+EXPORT int64_t tk_pool_cpu_take() {
+    int64_t v = tl_pool_cpu_ns;
+    tl_pool_cpu_ns = 0;
+    return v;
+}
+
+// Items [0, n) of a *_many call over up to `nthreads` threads (0: one a
+// core), each running work(); one item, or one thread, runs on the
+// caller.
+template <class Work>
+static void run_pool(int n, int nthreads, Work &work) {
+    unsigned hw = std::thread::hardware_concurrency();
+    int nt = nthreads > 0 ? nthreads : (hw ? (int)hw : 4);
+    if (nt > n) nt = n;
+    if (nt == 1) { work(); return; }
+    std::vector<int64_t> cpu(nt, 0);
+    std::vector<std::thread> ts;
+    for (int t = 0; t < nt; t++)
+        ts.emplace_back([&work, &cpu, t]() {
+            work();
+            cpu[t] = thread_cpu_ns();
+        });
+    for (auto &t : ts) t.join();
+    for (int64_t c : cpu) tl_pool_cpu_ns += c;
+}
 
 static void lz4f_compress_many_impl(
     const uint8_t *base, const int64_t *offs, const int64_t *lens, int n,
@@ -858,9 +900,6 @@ static void lz4f_compress_many_impl(
     int nthreads,
     int64_t (*one)(const uint8_t *, int64_t, uint8_t *, int64_t)) {
     if (n <= 0) return;
-    unsigned hw = std::thread::hardware_concurrency();
-    int nt = nthreads > 0 ? nthreads : (hw ? (int)hw : 4);
-    if (nt > n) nt = n;
     std::atomic<int> next(0);
     auto work = [&]() {
         int i;
@@ -870,10 +909,7 @@ static void lz4f_compress_many_impl(
                               tk_lz4f_bound(lens[i]));
         }
     };
-    if (nt == 1) { work(); return; }
-    std::vector<std::thread> ts;
-    for (int t = 0; t < nt; t++) ts.emplace_back(work);
-    for (auto &t : ts) t.join();
+    run_pool(n, nthreads, work);
 }
 
 EXPORT void tk_lz4f_compress_many(const uint8_t *base, const int64_t *offs,
@@ -897,9 +933,6 @@ EXPORT void tk_snappy_compress_many(const uint8_t *base, const int64_t *offs,
                                     uint8_t *outbase, const int64_t *out_offs,
                                     int64_t *out_lens, int nthreads) {
     if (n <= 0) return;
-    unsigned hw = std::thread::hardware_concurrency();
-    int nt = nthreads > 0 ? nthreads : (hw ? (int)hw : 4);
-    if (nt > n) nt = n;
     std::atomic<int> next(0);
     auto work = [&]() {
         int i;
@@ -909,10 +942,7 @@ EXPORT void tk_snappy_compress_many(const uint8_t *base, const int64_t *offs,
                                              tk_snappy_bound(lens[i]));
         }
     };
-    if (nt == 1) { work(); return; }
-    std::vector<std::thread> ts;
-    for (int t = 0; t < nt; t++) ts.emplace_back(work);
-    for (auto &t : ts) t.join();
+    run_pool(n, nthreads, work);
 }
 
 // Exact decompressed size by a write-free sequence walk (the lz4 frame
@@ -1002,9 +1032,6 @@ EXPORT void tk_lz4f_decompress_many(const uint8_t *base, const int64_t *offs,
                                     const int64_t *out_caps,
                                     int64_t *out_lens, int nthreads) {
     if (n <= 0) return;
-    unsigned hw = std::thread::hardware_concurrency();
-    int nt = nthreads > 0 ? nthreads : (hw ? (int)hw : 4);
-    if (nt > n) nt = n;
     std::atomic<int> next(0);
     auto work = [&]() {
         int i;
@@ -1014,10 +1041,7 @@ EXPORT void tk_lz4f_decompress_many(const uint8_t *base, const int64_t *offs,
                                              out_caps[i]);
         }
     };
-    if (nt == 1) { work(); return; }
-    std::vector<std::thread> ts;
-    for (int t = 0; t < nt; t++) ts.emplace_back(work);
-    for (auto &t : ts) t.join();
+    run_pool(n, nthreads, work);
 }
 
 EXPORT void tk_snappy_decompress_many(const uint8_t *base, const int64_t *offs,
@@ -1027,9 +1051,6 @@ EXPORT void tk_snappy_decompress_many(const uint8_t *base, const int64_t *offs,
                                       const int64_t *out_caps,
                                       int64_t *out_lens, int nthreads) {
     if (n <= 0) return;
-    unsigned hw = std::thread::hardware_concurrency();
-    int nt = nthreads > 0 ? nthreads : (hw ? (int)hw : 4);
-    if (nt > n) nt = n;
     std::atomic<int> next(0);
     auto work = [&]() {
         int i;
@@ -1039,10 +1060,7 @@ EXPORT void tk_snappy_decompress_many(const uint8_t *base, const int64_t *offs,
                                                out_caps[i]);
         }
     };
-    if (nt == 1) { work(); return; }
-    std::vector<std::thread> ts;
-    for (int t = 0; t < nt; t++) ts.emplace_back(work);
-    for (auto &t : ts) t.join();
+    run_pool(n, nthreads, work);
 }
 
 // ---------------------------------------------------------------------------

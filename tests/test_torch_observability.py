@@ -29,6 +29,7 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 
+import torch_port_only as port_only
 from test_torch_client import port_conf
 from test_torch_txn import both as both_at_once
 
@@ -221,7 +222,10 @@ def test_trace_e2e_produce_consume_all_stages(tmp_path):
                 "sharded"} <= r["keys"]["device_launch"]
     common = set(port["keys"]) & set(ref["keys"])
     assert REQUIRED <= common
-    assert {k: port["keys"][k] for k in common} == \
+    # the port's own span args (CPU_ACCOUNTING.md) aside
+    assert port_only.SPAN_ARGS <= port["keys"]["produce_tx"] & \
+        port["keys"]["ack"]
+    assert {k: port["keys"][k] - port_only.SPAN_ARGS for k in common} == \
         {k: ref["keys"][k] for k in common}
 
 
