@@ -80,16 +80,36 @@ def lib() -> ctypes.CDLL:
         L.tk_lz4f_decompressed_size.argtypes = [ctypes.c_char_p, i64]
         L.tk_pool_cpu_take.restype = i64
         L.tk_pool_cpu_take.argtypes = []
+        L.tk_pool_grain.restype = i64
+        L.tk_pool_grain.argtypes = []
+        L.tk_pool_stats.restype = None
+        L.tk_pool_stats.argtypes = [i64p]
         _lib = L
     return _lib
 
 
 def pool_cpu_take() -> int:
-    """CPU nanoseconds that the worker threads of this thread's native
-    ``*_many`` calls spent since its previous take (the threads exit
-    before the call returns, so no per-thread reading outside sees
-    them); zeroes the account.  0 before the library is loaded."""
+    """CPU nanoseconds that the native pool's workers spent on this
+    thread's ``*_many`` calls since its previous take (each worker's
+    clock read around its share of a call); zeroes the account.  0
+    before the library is loaded."""
     return 0 if _lib is None else int(_lib.tk_pool_cpu_take())
+
+
+POOL_STATS = ("pool_calls", "pool_solo_calls", "pool_busy_calls",
+              "pool_wakes")
+
+
+def pool_stats() -> dict:
+    """How often the native pool engaged, process-wide: ``*_many``
+    calls, calls served by the caller alone (one participant), calls
+    that found the pool held by another call and so ran alone, and
+    worker participations.  Zeroes before the library is loaded."""
+    if _lib is None:
+        return dict.fromkeys(POOL_STATS, 0)
+    out = (ctypes.c_int64 * len(POOL_STATS))()
+    _lib.tk_pool_stats(out)
+    return dict(zip(POOL_STATS, out))
 
 
 def _outbuf(cap: int):
@@ -339,8 +359,9 @@ def crc32c_many(buffers: list[bytes]) -> np.ndarray:
 
 def _compress_many_parallel(fn_name: str, bound_name: str,
                             bufs: list[bytes]) -> list[bytes]:
-    """One native call compressing all buffers across a thread pool —
-    the batch axis the reference's per-broker-thread design serializes."""
+    """One native call compressing all buffers, spread over the native
+    pool by their bytes — the batch axis the reference's
+    per-broker-thread design serializes."""
     if not bufs:
         return []
     L = lib()

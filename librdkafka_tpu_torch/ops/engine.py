@@ -652,10 +652,13 @@ class AsyncOffloadEngine:
              "turns": 0,
              # thread CPU, counted only while tracing: every turn, the
              # readbacks' device waits, the host work (host jobs,
-             # CPU-served groups), and the native pool threads that
-             # host work started
+             # CPU-served groups), and what the native pool's workers
+             # spent on that host work
              "turn_cpu_ns": 0, "sync_cpu_ns": 0, "host_cpu_ns": 0,
-             "native_pool_cpu_ns": 0})
+             "native_pool_cpu_ns": 0,
+             # the native pool's process-wide counts, copied after each
+             # piece of host work (ops/cpu.py pool_stats)
+             **_cpu_ops.pool_stats()})
         # the device compress route's counters, kept apart from the CRC
         # stats (same discipline: dispatch-thread writes, snapshot reads)
         self.compress_stats = shared_dict("engine.compress_stats",
@@ -1221,6 +1224,7 @@ class AsyncOffloadEngine:
                 t0 = _trace.now() if _trace.enabled else 0
                 c0 = time.thread_time_ns() if t0 else 0
                 job.ticket._complete(job.fn(*job.args))
+                self.stats.update(_cpu_ops.pool_stats())
                 if t0:
                     self._note_host_cpu(c0)
                     _trace.complete(
@@ -1300,6 +1304,7 @@ class AsyncOffloadEngine:
                 j.ticket._fail(e)
             self.governor.note_qos(j.topics, shed=shed)
         self.governor.note_cpu_compress(nbytes, time.perf_counter() - t0)
+        self.stats.update(_cpu_ops.pool_stats())
         if tr0:
             self._note_host_cpu(c0)
             _trace.complete("engine", "cpu_serve", tr0,

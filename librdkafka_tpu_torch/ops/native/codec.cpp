@@ -850,14 +850,18 @@ EXPORT int64_t tk_frame_v2_run(const uint8_t *base, const int32_t *klens,
 
 #include <thread>
 #include <atomic>
-#include <vector>
+#include <condition_variable>
+#include <mutex>
+#include <cstdio>
+#include <pthread.h>
+#include <semaphore.h>
 #include <time.h>
 
-// The CPU the pool's worker threads spent, per calling thread: each
-// worker reads its own thread clock once as it finishes, and the caller
-// adds the sum here after the join.  Those threads have exited by the
-// time anything outside could read them (/proc/self/task), so this is
-// the only record of their CPU; tk_pool_cpu_take() hands it over.
+// The CPU the pool's workers spent on the calling thread's calls: each
+// worker reads its own thread clock around its share of a call, and the
+// caller adds the sum here as the call returns.  No reading outside
+// (/proc/self/task) can split a parked worker's CPU by call, so this is
+// the record of it; tk_pool_cpu_take() hands it over.
 static thread_local int64_t tl_pool_cpu_ns = 0;
 
 static inline int64_t thread_cpu_ns() {
@@ -866,32 +870,166 @@ static inline int64_t thread_cpu_ns() {
     return (int64_t)ts.tv_sec * 1000000000 + ts.tv_nsec;
 }
 
-// The CPU nanoseconds of the pool workers that the calling thread's
-// *_many calls started since its last take; zeroes the account.
+// The CPU nanoseconds of the pool workers that served the calling
+// thread's *_many calls since its last take; zeroes the account.
 EXPORT int64_t tk_pool_cpu_take() {
     int64_t v = tl_pool_cpu_ns;
     tl_pool_cpu_ns = 0;
     return v;
 }
 
-// Items [0, n) of a *_many call over up to `nthreads` threads (0: one a
-// core), each running work(); one item, or one thread, runs on the
-// caller.
+// Each participant of a call gets at least this much input.  A woken
+// worker costs CPU beyond its share, more the smaller the share, and
+// the client pays in CPU: smaller grains only buy wall time (the sweep
+// in PERF.md).
+static const int64_t POOL_GRAIN = 1 << 20;
+
+EXPORT int64_t tk_pool_grain() { return POOL_GRAIN; }
+
+// How often the pool engages, process-wide: *_many calls, calls with
+// one participant, calls that found the pool held by another call and
+// so ran alone, and worker participations.
+static std::atomic<int64_t> pool_calls{0}, pool_solo_calls{0},
+    pool_busy_calls{0}, pool_wakes{0};
+
+// out[0..3] = calls, solo calls, busy calls, worker participations.
+EXPORT void tk_pool_stats(int64_t *out) {
+    out[0] = pool_calls.load(std::memory_order_relaxed);
+    out[1] = pool_solo_calls.load(std::memory_order_relaxed);
+    out[2] = pool_busy_calls.load(std::memory_order_relaxed);
+    out[3] = pool_wakes.load(std::memory_order_relaxed);
+}
+
+// One process-wide set of parked workers that serves one call at a
+// time.  A call that wants k participants posts its work, then wakes
+// workers 0 .. k-2, each on a semaphore of its own, so every wake
+// reaches the worker it names; it runs the work too, and returns once
+// each woken worker has left the work.
+struct Pool {
+    std::mutex mu;
+    std::condition_variable done;
+    void (*fn)(void *) = nullptr;
+    void *arg = nullptr;
+    int pending = 0;         // woken workers still inside the call
+    int64_t cpu = 0;         // their thread CPU in it
+    int size = 0;            // workers started
+    sem_t *go = nullptr;     // one a worker
+    std::atomic<bool> held{false};
+};
+
+// One worker a core less one (the caller is the last participant); read
+// once, since hardware_concurrency() reads /sys on every call.
+static int pool_size() {
+    static const int n = [] {
+        unsigned hw = std::thread::hardware_concurrency();
+        return hw ? (int)hw - 1 : 3;
+    }();
+    return n;
+}
+
+static void pool_worker(Pool *p, int id) {
+    char name[16];
+    snprintf(name, sizeof name, "tk-pool/%d", id);
+    pthread_setname_np(pthread_self(), name);
+    for (;;) {
+        while (sem_wait(&p->go[id]) != 0) {
+        }
+        int64_t c0 = thread_cpu_ns();
+        p->fn(p->arg);
+        int64_t c = thread_cpu_ns() - c0;
+        std::lock_guard<std::mutex> lk(p->mu);
+        p->cpu += c;
+        if (--p->pending == 0) p->done.notify_one();
+    }
+}
+
+// Built at the first call that wants a worker and never destroyed, so
+// nothing joins parked workers at exit.  A forked child holds none of
+// its parent's workers: it drops the pool and builds its own.
+static std::atomic<Pool *> g_pool{nullptr};
+static std::mutex g_pool_build;
+
+static void pool_fork_prepare() { g_pool_build.lock(); }
+static void pool_fork_parent() { g_pool_build.unlock(); }
+static void pool_fork_child() {
+    g_pool.store(nullptr, std::memory_order_relaxed);
+    g_pool_build.unlock();
+}
+
+static Pool *get_pool() {
+    Pool *p = g_pool.load(std::memory_order_acquire);
+    if (p) return p;
+    std::lock_guard<std::mutex> g(g_pool_build);
+    p = g_pool.load(std::memory_order_relaxed);
+    if (p) return p;
+    static const bool forks = (pthread_atfork(pool_fork_prepare,
+                                              pool_fork_parent,
+                                              pool_fork_child), true);
+    (void)forks;
+    p = new Pool();
+    int n = pool_size();
+    p->go = new sem_t[n];
+    try {
+        for (; p->size < n; p->size++) {
+            sem_init(&p->go[p->size], 0, 0);
+            std::thread(pool_worker, p, p->size).detach();
+        }
+    } catch (...) {
+        // no more threads to be had: serve with the workers started
+    }
+    g_pool.store(p, std::memory_order_release);
+    return p;
+}
+
+// Items [0, n) of a *_many call holding `bytes` of input, each running
+// work(): over one participant per POOL_GRAIN of input, at most n and
+// at most `nthreads` (0: the pool's workers and the caller).  One
+// participant, or a pool held by another call, runs on the caller.
 template <class Work>
-static void run_pool(int n, int nthreads, Work &work) {
-    unsigned hw = std::thread::hardware_concurrency();
-    int nt = nthreads > 0 ? nthreads : (hw ? (int)hw : 4);
-    if (nt > n) nt = n;
-    if (nt == 1) { work(); return; }
-    std::vector<int64_t> cpu(nt, 0);
-    std::vector<std::thread> ts;
-    for (int t = 0; t < nt; t++)
-        ts.emplace_back([&work, &cpu, t]() {
-            work();
-            cpu[t] = thread_cpu_ns();
-        });
-    for (auto &t : ts) t.join();
-    for (int64_t c : cpu) tl_pool_cpu_ns += c;
+static void run_pool(int n, int64_t bytes, int nthreads, Work &work) {
+    pool_calls.fetch_add(1, std::memory_order_relaxed);
+    int64_t k = bytes / POOL_GRAIN;
+    int64_t cap = nthreads > 0 ? nthreads : pool_size() + 1;
+    if (k > cap) k = cap;
+    if (k > n) k = n;
+    Pool *p = k > 1 ? get_pool() : nullptr;
+    if (p && k > p->size + 1) k = p->size + 1;
+    if (k <= 1) {
+        pool_solo_calls.fetch_add(1, std::memory_order_relaxed);
+        work();
+        return;
+    }
+    bool idle = false;
+    if (!p->held.compare_exchange_strong(idle, true,
+                                         std::memory_order_acquire)) {
+        pool_busy_calls.fetch_add(1, std::memory_order_relaxed);
+        work();
+        return;
+    }
+    p->fn = [](void *w) { (*static_cast<Work *>(w))(); };
+    p->arg = &work;
+    {
+        std::lock_guard<std::mutex> lk(p->mu);
+        p->pending = (int)k - 1;
+        p->cpu = 0;
+    }
+    for (int i = 0; i < k - 1; i++) sem_post(&p->go[i]);
+    work();
+    int64_t cpu;
+    {
+        std::unique_lock<std::mutex> lk(p->mu);
+        p->done.wait(lk, [&] { return p->pending == 0; });
+        cpu = p->cpu;
+    }
+    p->held.store(false, std::memory_order_release);
+    pool_wakes.fetch_add(k - 1, std::memory_order_relaxed);
+    tl_pool_cpu_ns += cpu;
+}
+
+static int64_t total_len(const int64_t *lens, int n) {
+    int64_t t = 0;
+    for (int i = 0; i < n; i++) t += lens[i];
+    return t;
 }
 
 static void lz4f_compress_many_impl(
@@ -909,7 +1047,7 @@ static void lz4f_compress_many_impl(
                               tk_lz4f_bound(lens[i]));
         }
     };
-    run_pool(n, nthreads, work);
+    run_pool(n, total_len(lens, n), nthreads, work);
 }
 
 EXPORT void tk_lz4f_compress_many(const uint8_t *base, const int64_t *offs,
@@ -942,7 +1080,7 @@ EXPORT void tk_snappy_compress_many(const uint8_t *base, const int64_t *offs,
                                              tk_snappy_bound(lens[i]));
         }
     };
-    run_pool(n, nthreads, work);
+    run_pool(n, total_len(lens, n), nthreads, work);
 }
 
 // Exact decompressed size by a write-free sequence walk (the lz4 frame
@@ -1041,7 +1179,7 @@ EXPORT void tk_lz4f_decompress_many(const uint8_t *base, const int64_t *offs,
                                              out_caps[i]);
         }
     };
-    run_pool(n, nthreads, work);
+    run_pool(n, total_len(lens, n), nthreads, work);
 }
 
 EXPORT void tk_snappy_decompress_many(const uint8_t *base, const int64_t *offs,
@@ -1060,7 +1198,7 @@ EXPORT void tk_snappy_decompress_many(const uint8_t *base, const int64_t *offs,
                                                out_caps[i]);
         }
     };
-    run_pool(n, nthreads, work);
+    run_pool(n, total_len(lens, n), nthreads, work);
 }
 
 // ---------------------------------------------------------------------------

@@ -175,7 +175,7 @@ CPU_FIELDS = ("turn_cpu_ns", "sync_cpu_ns", "host_cpu_ns",
 
 def _engine_round(eng) -> None:
     prov = native.CpuCodecProvider()
-    bufs = [os.urandom(30000) + b"z" * 30000 for _ in range(8)]
+    bufs = [os.urandom(140_000) + b"z" * 140_000 for _ in range(8)]
     got = eng.submit_compute(prov.compress_many, "lz4", bufs, host=True)
     assert [native.lz4_decompress(f, len(b)) for f, b in
             zip(got.result(120), bufs)] == bufs
@@ -209,7 +209,7 @@ def test_engine_cpu_fields_count_while_tracing(traced):
 
 
 def test_pool_cpu_take_counts_the_calling_threads_pool():
-    bufs = [os.urandom(100_000) + b"q" * 100_000 for _ in range(8)]
+    bufs = [os.urandom(300_000) + b"q" * 300_000 for _ in range(8)]
     native.lz4f_compress_many(bufs)           # loads the library
     native.pool_cpu_take()
     native.lz4f_compress_many(bufs)

@@ -4,8 +4,9 @@ reference's unchanged driver, tests/tsan_codec.cpp, under
 -fsanitize=thread.  The driver calls the *_many entry points from many
 threads at once, as broker and codec-worker threads of several clients
 do; any ThreadSanitizer report fails the test (halt_on_error with exit
-code 66).  It skips as 0124 does: without g++, or with a toolchain that
-lacks ThreadSanitizer.
+code 66).  A second driver, tests/tsan_pool.cpp, drives the port's
+persistent pool the same way.  Both skip as 0124 does: without g++, or
+with a toolchain that lacks ThreadSanitizer.
 """
 import os
 import shutil
@@ -18,8 +19,9 @@ CODEC = os.path.join(HERE, "..", "librdkafka_tpu_torch", "ops", "native",
                      "codec.cpp")
 
 
-@pytest.mark.skipif(shutil.which("g++") is None, reason="no g++")
-def test_port_native_codec_under_tsan(tmp_path):
+def _run_under_tsan(tmp_path, driver: str) -> str:
+    """Build codec.cpp with ``driver`` under -fsanitize=thread and run
+    it; any TSAN report fails.  Returns the driver's output."""
     exe = str(tmp_path / "tsan_codec")
     probe = tmp_path / "probe.cpp"
     probe.write_text("int main(){return 0;}\n")
@@ -31,7 +33,7 @@ def test_port_native_codec_under_tsan(tmp_path):
         pytest.skip("toolchain lacks ThreadSanitizer")
     subprocess.run(
         ["g++", "-std=c++17", "-O1", "-g", "-fsanitize=thread",
-         "-pthread", CODEC, os.path.join(HERE, "tsan_codec.cpp"),
+         "-pthread", CODEC, os.path.join(HERE, driver),
          "-o", exe],
         check=True, capture_output=True)
     env = dict(os.environ)
@@ -40,4 +42,17 @@ def test_port_native_codec_under_tsan(tmp_path):
                        env=env)
     assert r.returncode == 0, (
         f"rc={r.returncode} (66 = TSAN report)\n{r.stderr[-4000:]}")
-    assert "TSAN-CODEC-OK" in r.stdout
+    return r.stdout
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="no g++")
+def test_port_native_codec_under_tsan(tmp_path):
+    assert "TSAN-CODEC-OK" in _run_under_tsan(tmp_path, "tsan_codec.cpp")
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="no g++")
+def test_port_native_pool_under_tsan(tmp_path):
+    """The persistent pool's hand-offs (tests/tsan_pool.cpp): calls of
+    several grains from four threads, woken workers and calls that find
+    the pool held."""
+    assert "TSAN-POOL-OK" in _run_under_tsan(tmp_path, "tsan_pool.cpp")
