@@ -217,7 +217,7 @@ class _Launch:
     """One in-flight launch awaiting readback."""
 
     __slots__ = ("kind", "jobs", "chunks", "ticket", "out_tree", "event",
-                 "t0", "bucket", "lane", "raw", "sharded")
+                 "t0", "bucket", "lane", "raw", "sharded", "host_s")
 
     def __init__(self, kind):
         self.kind = kind
@@ -230,6 +230,7 @@ class _Launch:
         self.out_tree = None
         self.event = None                        # compute: end of fn's work
         self.t0: Optional[float] = None          # launch wall-clock start
+        self.host_s = 0.0                        # lz4: packing + launch
         self.bucket: Optional[int] = None        # slot bucket of chunk 0
         self.lane: Optional["_Lane"] = None
         self.sharded = False                     # split over every lane
@@ -305,7 +306,9 @@ class _Governor:
         self.dev_launch_s: dict[tuple[int, int], float] = {}
         self._since_explore = 0
         # compress cost models: the CRC models' shapes, never sharing an
-        # estimate with them (an lz4 launch is far heavier than a CRC one)
+        # estimate with them (an lz4 launch is far heavier than a CRC one).
+        # A launched round's estimate is the dispatch thread's time on it
+        # (packing and launch, then readback and frames: _readback_lz4)
         self.cpu_comp_ns_per_byte: Optional[float] = None
         self.dev_comp_launch_s: dict[tuple[int, int], float] = {}
         self._since_explore_comp = 0
@@ -651,9 +654,10 @@ class AsyncOffloadEngine:
              # the dispatch loop's turns
              "turns": 0,
              # thread CPU, counted only while tracing: every turn, the
-             # readbacks' device waits, the host work (host jobs,
-             # CPU-served groups), and what the native pool's workers
-             # spent on that host work
+             # CRC and compute readbacks' device waits (the compress
+             # route's are its own), the host work (host jobs, CPU-served
+             # groups), and what the native pool's workers spent on that
+             # host work
              "turn_cpu_ns": 0, "sync_cpu_ns": 0, "host_cpu_ns": 0,
              "native_pool_cpu_ns": 0,
              # the native pool's process-wide counts, copied after each
@@ -667,7 +671,13 @@ class AsyncOffloadEngine:
             {"launches": 0, "blocks": 0, "jobs": 0, "cpu_jobs": 0,
              "warmup_miss_jobs": 0, "routed_cpu_jobs": 0,
              "explore_routes": 0, "fused_crc": 0, "shed_jobs": 0,
-             "bytes_in": 0, "bytes_out": 0})
+             "bytes_in": 0, "bytes_out": 0,
+             # input bytes the CPU encoder served (bytes_in: launched)
+             "cpu_bytes_in": 0,
+             # thread CPU, counted only while tracing: packing and
+             # launching a round, its readback's device wait, and
+             # assembling its frames
+             "fill_cpu_ns": 0, "sync_cpu_ns": 0, "frame_cpu_ns": 0})
         # per-bucket route split {str(bucket): {"device": n, "cpu": n}}
         self._comp_routed = shared_dict("engine.compress_routed",
                                         relaxed=True)
@@ -1304,6 +1314,7 @@ class AsyncOffloadEngine:
                 j.ticket._fail(e)
             self.governor.note_qos(j.topics, shed=shed)
         self.governor.note_cpu_compress(nbytes, time.perf_counter() - t0)
+        self.compress_stats["cpu_bytes_in"] += nbytes
         self.stats.update(_cpu_ops.pool_stats())
         if tr0:
             self._note_host_cpu(c0)
@@ -1689,6 +1700,7 @@ class AsyncOffloadEngine:
         lane.launches += 1
         lane.blocks += nblocks
         lane.jobs += len(group)
+        c0 = time.thread_time_ns() if tr0 else 0
         for a, b in chunks:
             plan = _lz4.plan_lz4(lens[a:b])
             slot = lane.staging.take(plan.nbytes)
@@ -1699,13 +1711,17 @@ class AsyncOffloadEngine:
                 lane.staging.give_back([slot] + [c[0] for c in rec.chunks])
                 raise
             rec.chunks.append((slot, plan, handle))
+        rec.host_s = time.perf_counter() - t_launch
+        if tr0:
+            self.compress_stats["fill_cpu_ns"] += time.thread_time_ns() - c0
         for j in group:
             self.governor.note_qos(j.topics, shed=False)
         if tr0:
             _trace.complete("engine", "compress_launch", tr0,
                             {"route": "device", "explored": explored,
                              "bucket": bucket, "blocks": nblocks,
-                             "jobs": len(group), "device": lane.dev_id})
+                             "jobs": len(group), "device": lane.dev_id,
+                             "bytes": int(lens.sum())})
         return rec
 
     # ------------------------------------------------------------ readback --
@@ -1743,7 +1759,16 @@ class AsyncOffloadEngine:
         launch gave the compressed blocks AND the CRCs of both candidate
         bodies of each block, so the store-raw choice (compressed iff
         strictly smaller) picks its CRC for free and the v2 batch CRC is
-        a host-side combine away (FrameBlob.region_crc)."""
+        a host-side combine away (FrameBlob.region_crc).
+
+        The governor's compress model takes the round's cost to this
+        thread: packing and launching it, then waiting for it here and
+        assembling its frames.  What the thread did between the launch
+        and this readback (other rounds, CPU-served groups, its wait for
+        work) is not this round's cost: counting it would make every group
+        served on the host raise the estimate of the launches in flight
+        around it, and so send more groups to the host."""
+        t_rb = time.perf_counter()
         tr0 = _trace.now() if _trace.enabled else 0
         c0 = time.thread_time_ns() if tr0 else 0
         try:
@@ -1752,15 +1777,14 @@ class AsyncOffloadEngine:
         finally:
             rec.lane.staging.give_back([c[0] for c in rec.chunks])
         if tr0:
-            self.stats["sync_cpu_ns"] += time.thread_time_ns() - c0
+            self.compress_stats["sync_cpu_ns"] += time.thread_time_ns() - c0
         if rec.t0 is not None:
             dt = time.perf_counter() - rec.t0
-            self.governor.note_device_compress(rec.bucket, dt,
-                                               rec.lane.dev_id)
             rec.lane.launch_avg.add(dt * 1e6)
             self.stage_launch.add(dt * 1e6)
         t_reap = time.perf_counter()
         self.compress_stats["fused_crc"] += 1
+        c0 = time.thread_time_ns() if tr0 else 0
         frames, nblocks = [], 0
         for (_, plan, _), (packed, offs, olen, cc, cr) in zip(rec.chunks,
                                                             parts):
@@ -1776,7 +1800,14 @@ class AsyncOffloadEngine:
                                    int(cc[i]), raw, int(cr[i])))
                 frames.append(lz4f_frame(bodies))
             nblocks += plan.B
-        self.compress_stats["bytes_out"] += sum(len(f) for f in frames)
+        if tr0:
+            self.compress_stats["frame_cpu_ns"] += time.thread_time_ns() - c0
+        nbytes = sum(len(f) for f in frames)
+        self.compress_stats["bytes_out"] += nbytes
+        if rec.t0 is not None:
+            self.governor.note_device_compress(
+                rec.bucket, rec.host_s + time.perf_counter() - t_rb,
+                rec.lane.dev_id)
         pos = 0
         for j in rec.jobs:
             j.ticket._complete(frames[pos:pos + len(j.lens)])
@@ -1784,7 +1815,8 @@ class AsyncOffloadEngine:
         if tr0:
             _trace.complete("engine", "fused_crc", tr0,
                             {"bucket": rec.bucket, "frames": len(frames),
-                             "blocks": nblocks, "device": rec.lane.dev_id})
+                             "blocks": nblocks, "device": rec.lane.dev_id,
+                             "bytes": nbytes})
         self.stage_reap.add((time.perf_counter() - t_reap) * 1e6)
 
     def _readback_crc(self, rec: _Launch) -> None:

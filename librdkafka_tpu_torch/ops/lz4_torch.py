@@ -707,15 +707,25 @@ def plan_lz4(buf_lens) -> Lz4Plan:
 
 def fill_lz4(slot: "_crc.Slot", plan: Lz4Plan, bufs) -> None:
     """Write the planned buffers into ``slot`` (after the slot's last
-    launch no longer reads it), then the metadata."""
+    launch no longer reads it), then the metadata.
+
+    The buffers, zeros up to each one's 16-byte padding and the metadata
+    are joined first and then copied in one piece: NumPy gives up the GIL
+    for a large copy, and a thread that gives it up once per buffer waits
+    to take it back once per buffer, behind the client's other Python
+    threads (64 buffers of 55 KB took 109 ms so on an H100's host beside
+    one thread that kept the GIL busy, against 0.43 ms alone)."""
     if plan.nbytes > slot.cap:
         raise ValueError(f"launch of {plan.nbytes} B over its slot's "
                          f"{slot.cap}")
+    parts = []
+    for b in bufs:
+        parts.append(b)
+        parts.append(bytes(-len(b) & 15))
+    parts.append(plan.meta.tobytes())
+    joined = b"".join(parts)
     slot.wait()
-    host = slot.host.numpy()
-    for off, b in zip(plan.buf_offs.tolist(), bufs):
-        host[off:off + len(b)] = np.frombuffer(b, dtype=np.uint8)
-    host[plan.flat_bytes:plan.nbytes] = plan.meta
+    slot.host.numpy()[:plan.nbytes] = np.frombuffer(joined, dtype=np.uint8)
     if slot.out.numel() < plan.out_words:
         slot.out = torch.empty((_crc._pow2(plan.out_words, 1024),),
                                dtype=torch.int64, pin_memory=slot.pin)

@@ -229,6 +229,55 @@ def test_pool_cpu_take_counts_the_calling_threads_pool():
     assert native.pool_cpu_take() == 0
 
 
+COMPRESS_CPU = ("fill_cpu_ns", "sync_cpu_ns", "frame_cpu_ns")
+
+
+def _compress_engine(min_batches: int):
+    from librdkafka_tpu_torch.ops.engine import AsyncOffloadEngine
+    return AsyncOffloadEngine(
+        devices=["cpu"], depth=2, min_batches=min_batches, warmup=False,
+        cpu_fallback=_crc_fallback,
+        cpu_compress_fallback=lambda bufs: native.lz4f_compress_many(
+            [bytes(b) for b in bufs], deterministic=True))
+
+
+def test_compress_route_cpu_counts_while_tracing(traced):
+    """A launched compress round (the kernel's plain version on a CPU
+    lane) moves its packing, readback and frame counters, and leaves
+    the CRC route's ``sync_cpu_ns`` where it was."""
+    eng = _compress_engine(1)
+    bufs = [b"route-%04d " % i * 90 for i in range(4)]
+    try:
+        got = eng.submit_compress(bufs, window=False).result(300)
+        assert [native.lz4_decompress(bytes(f), len(b))
+                for f, b in zip(got, bufs)] == bufs
+        comp, stats = dict(eng.compress_stats), dict(eng.stats)
+    finally:
+        eng.close()
+    assert comp["launches"] == 1 and comp["cpu_bytes_in"] == 0
+    assert comp["bytes_in"] == sum(map(len, bufs))
+    assert all(comp[k] > 0 for k in COMPRESS_CPU), comp
+    assert stats["sync_cpu_ns"] == 0
+    assert stats["turn_cpu_ns"] >= sum(comp[k] for k in COMPRESS_CPU)
+
+
+def test_compress_route_counts_cpu_bytes_below_quorum():
+    """A round below the launch quorum is the CPU encoder's: its input
+    bytes count in ``cpu_bytes_in`` whether or not tracing is on, and
+    the trace-only counters stay 0 untraced."""
+    assert not trace.enabled
+    eng = _compress_engine(4)
+    bufs = [b"below-quorum " * 100]
+    try:
+        eng.submit_compress(bufs, window=False).result(120)
+        comp = dict(eng.compress_stats)
+    finally:
+        eng.close()
+    assert comp["cpu_jobs"] == 1 and comp["launches"] == 0
+    assert comp["cpu_bytes_in"] == len(bufs[0]) and comp["bytes_in"] == 0
+    assert all(comp[k] == 0 for k in COMPRESS_CPU), comp
+
+
 def test_ring_counts_what_it_overwrote():
     """The ring's overwrites show in ``trace.dropped()``, on the
     thread's metadata record, and on each tally as it stood when the
@@ -301,7 +350,8 @@ def test_port_stats_carry_the_documented_port_only_fields():
     finally:
         p.close()
     fields = port_only.stats_fields()
-    assert set(fields) == {"brokers.{name}", "codec_engine"}
+    assert set(fields) == {"brokers.{name}", "codec_engine",
+                           "codec_engine.compress"}
     port_only.strip_stats(blob)          # asserts every field present
     for b in blob["brokers"].values():
         assert set(b["woke"]) == set(PASS_WOKE)

@@ -58,4 +58,9 @@ def strip_stats(tree: dict) -> dict:
         assert want <= set(out["codec_engine"]), \
             want - set(out["codec_engine"])
         out["codec_engine"] = _without(out["codec_engine"], want)
+        comp = out["codec_engine"].get("compress")
+        if isinstance(comp, dict):
+            want = fields["codec_engine.compress"]
+            assert want <= set(comp), want - set(comp)
+            out["codec_engine"]["compress"] = _without(comp, want)
     return out
