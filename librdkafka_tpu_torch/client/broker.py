@@ -82,6 +82,13 @@ class Request:
 # (reference: RD_KAFKA_IDEMP_MAX_INFLIGHT, rdkafka_idempotence.h:38)
 IDEMP_MAX_INFLIGHT = 5
 
+#: the wait that ends an UP broker's serve pass: the poll of a broker
+#: with work, and the block of one with nothing a timer must serve,
+#: which only an op (the wakeup pipe) or its socket ends (reference:
+#: rd_kafka_max_block_ms, rdkafka_broker.c)
+IO_WAIT_S = 0.005
+IDLE_WAIT_S = 1.0
+
 #: what ended a serve pass's wait (stats ``brokers.{name}.woke``): the
 #: wakeup pipe or op queue, the socket readable or writable, the wait's
 #: timeout, or no wait at all
@@ -639,6 +646,7 @@ class Broker:
     # by the stats emitter like the counters above
     c_wakeups = shared("broker.c_wakeups", relaxed=True)
     c_idle_wakeups = shared("broker.c_idle_wakeups", relaxed=True)
+    c_idle_waits = shared("broker.c_idle_waits", relaxed=True)
     # the serve pass in progress (reset by each pass): what it did, what
     # ended its wait, and while tracing its CPU tally
     _pass_work = 0
@@ -714,9 +722,9 @@ class Broker:
         self.c_fetch_tx_bytes = 0
         self.c_fetch_rx_bytes = 0
         # serve passes (upstream's `wakeups`), the passes that did
-        # nothing, what ended each pass's wait, and the ops served by
-        # kind (CPU_ACCOUNTING.md)
-        self.c_wakeups = self.c_idle_wakeups = 0
+        # nothing, the passes that blocked for IDLE_WAIT_S, what ended
+        # each pass's wait, and the ops served by kind (CPU_ACCOUNTING.md)
+        self.c_wakeups = self.c_idle_wakeups = self.c_idle_waits = 0
         self.c_woke = dict.fromkeys(PASS_WOKE, 0)
         self.c_ops = dict.fromkeys(PASS_OPS, 0)
         # KIP-227 incremental fetch session with this broker
@@ -777,6 +785,18 @@ class Broker:
         return bool(self.toppars or self.outq or self.waitresp
                     or self.retryq or self._connect_wanted)
 
+    def _nothing_to_serve(self) -> bool:
+        """An UP broker with no work and nothing else a timer must serve:
+        no unsent bytes, no codec results or fetched partitions to come
+        back, no TERMINATE served earlier in this pass (a TLS handshake
+        never reaches the wait: its state is not UP).  Every path that
+        gives a broker work pushes an op, and each push writes the
+        wakeup pipe, so such a broker may block until woken."""
+        return (self.state == BrokerState.UP and not self._has_work()
+                and not (self._wbuf.pending() or self._codec_outstanding
+                         or self._fetch_deferred or self._fetch_pending
+                         or self.terminate))
+
     def schedule_connect(self) -> None:
         """On-demand connection under sparse connections (reference:
         rd_kafka_broker_schedule_connection, rdkafka_broker.c:880):
@@ -789,6 +809,7 @@ class Broker:
     # --------------------------------------------------------- the thread --
     def _pass_counts(self) -> dict:
         return {"passes": self.c_wakeups, "idle_passes": self.c_idle_wakeups,
+                "idle_waits": self.c_idle_waits,
                 "woke": dict(self.c_woke), "ops": dict(self.c_ops)}
 
     def _thread_main(self):
@@ -889,7 +910,11 @@ class Broker:
                 self._consumer_serve(now)
         if tally is not None:
             tally.switch("wait")
-        self._io_serve()
+        if self._nothing_to_serve():
+            self.c_idle_waits += 1
+            self._io_serve(IDLE_WAIT_S)
+        else:
+            self._io_serve(IO_WAIT_S)
         if tally is not None:
             tally.switch("scan")
         self._scan_timeouts(now)
@@ -1262,7 +1287,7 @@ class Broker:
                and self._unsent_req_ends[0] <= self._wbuf.sent_total):
             self._unsent_req_ends.popleft()
 
-    def _io_serve(self, timeout: float = 0.005):
+    def _io_serve(self, timeout: float):
         """select() over socket + wakeup pipe
         (reference: rd_kafka_transport_io_serve, rdkafka_transport.c:795)."""
         rlist = [self._wakeup_r]

@@ -122,9 +122,11 @@ class StatsCollector:
                 "rx": b.c_rx, "rxbytes": b.c_rx_bytes,
                 "req_timeouts": b.c_req_timeouts,
                 # the serve thread's passes: all, those that did nothing,
-                # what ended each one's wait, the ops served by kind
+                # those that blocked with nothing to serve, what ended
+                # each one's wait, the ops served by kind
                 "wakeups": b.c_wakeups,
                 "idle_wakeups": b.c_idle_wakeups,
+                "idle_waits": b.c_idle_waits,
                 "woke": dict(b.c_woke),
                 "ops": dict(b.c_ops),
                 # latency decomposition (STATISTICS.md broker window stats)

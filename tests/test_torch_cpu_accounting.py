@@ -18,7 +18,8 @@ import pytest
 
 import torch_port_only as port_only
 from librdkafka_tpu_torch import Producer
-from librdkafka_tpu_torch.client.broker import PASS_OPS, PASS_WOKE, _CpuTally
+from librdkafka_tpu_torch.client.broker import (IDLE_WAIT_S, PASS_OPS,
+                                                PASS_WOKE, _CpuTally)
 from librdkafka_tpu_torch.obs import trace
 from librdkafka_tpu_torch.ops import cpu as native
 
@@ -86,7 +87,9 @@ def test_tally_passes_sum_to_wakeups(backend, traced):
     one ``woke`` cause, and the CPU falls in the named phases."""
     p = _producer(backend, **{"trace.enable": True})
     _produce_round(p)
-    time.sleep(0.25)                 # at least one 100 ms tally on its own
+    # at least one 100 ms tally on its own, also from the bootstrap
+    # broker, whose next pass ends only as its idle wait times out
+    time.sleep(IDLE_WAIT_S + 0.25)
     blob = json.loads(p._rk.stats.emit_json())
     worker = p._rk.codec_worker
     brokers = _close_and_join(p)
@@ -97,6 +100,7 @@ def test_tally_passes_sum_to_wakeups(backend, traced):
         assert len(mine) >= 2, b.name
         assert sum(a["passes"] for a in mine) == b.c_wakeups > 0
         assert sum(a["idle_passes"] for a in mine) == b.c_idle_wakeups
+        assert sum(a["idle_waits"] for a in mine) == b.c_idle_waits
         for a in mine:
             assert sum(a["woke"].values()) == a["passes"]
             assert set(a["woke"]) == set(PASS_WOKE)
