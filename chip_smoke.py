@@ -327,6 +327,7 @@ import torch
 from librdkafka_tpu_torch import (CpuCodecProvider, GpuCodecProvider,
                                   read_batches, submit_batches, submit_read,
                                   write_batches)
+from librdkafka_tpu_torch.client import codec_phase
 from librdkafka_tpu_torch.ops import cpu as native
 from librdkafka_tpu_torch.models import codec_step
 from librdkafka_tpu_torch.ops import crc32c_torch as crc
@@ -4206,10 +4207,12 @@ def p11_teardown(kit, backend: dict, tag: str, parts: int = 8,
         p11_engine_down(p, f"11c {tag} producer")
         out["ticket_waits"] = p11_tickets(tickets)
         # the wedged thread outlived close(): a CRC batch it submits now
-        # meets the closed engine and still resolves, exact
+        # meets the closed engine and still resolves, exact (through the
+        # seam rule: the JAX package's Broker._codec_submit, the port's
+        # codec_phase.submit)
         regions = [bytes(v) for v in vals[:8]]
-        late = type(stuck)._codec_submit(prov, "crc32c_submit",
-                                         prov.crc32c_many, regions)
+        seam = getattr(type(stuck), "_codec_submit", codec_phase.submit)
+        late = seam(prov, "crc32c_submit", prov.crc32c_many, regions)
         p11_check([int(x) for x in late.result(10)]
                   == native.crc32c_many(regions).tolist(),
                   f"11c {tag}: a CRC batch submitted after close() != the "

@@ -29,20 +29,8 @@ import time
 from typing import Optional
 
 from ..analysis.locks import new_lock
-
-_enqlane = None
-_enqlane_err = False
-
-
-def _mod():
-    global _enqlane, _enqlane_err
-    if _enqlane is None and not _enqlane_err:
-        try:
-            from ..ops.native.build import load_enqlane
-            _enqlane = load_enqlane()
-        except Exception:
-            _enqlane_err = True
-    return _enqlane
+# the tk_torch_enqlane extension, or None (ops/native/build.py)
+from ..ops.native.build import enqlane as _mod
 
 
 def arena_new():

@@ -34,16 +34,15 @@ from ..obs import trace as _trace
 from ..analysis import lockdep as _lockdep
 from ..analysis.races import shared
 from ..ops import cpu as _cpu_ops
-from ..ops.cpu import SyncTicket
-from ..ops.packing import FrameBlob
 from ..protocol import apis, proto
 from ..protocol.apis import APIS
 from ..utils import sockbuf
-from ..protocol.msgset import MsgsetWriterV2
+from ..protocol.msgset import MsgsetWriterV2, iter_legacy_crc_regions
 from ..protocol.proto import ApiKey, ATTR_TRANSACTIONAL
 from .errors import Err, KafkaError, KafkaException
 from .feature import (MSGVER1, MSGVER2, fallback_api_versions,
                       features_from_api_versions, pick_version)
+from . import codec_phase
 from .arena import ArenaBatch, batch_head_msgid
 from .msg import Message, MsgStatus
 from .queue import Op, OpQueue, OpType
@@ -168,311 +167,30 @@ class _CpuTally:
         self.t_start = _trace.now()
 
 
-class _FusedJob:
-    """Phase-2 marker replacing MsgsetWriterV2 for ArenaBatches the
-    fused native builder (tk_torch_enqlane.build_batch) can finish in one
-    GIL-released call: frame + compress + v2 header + CRC, no
-    intermediate Python bytes.  Idempotence fields are captured at
-    batch-formation time exactly like _make_writer does."""
+def _begin_codec_phase(rk, ready: list) -> codec_phase.PendingBatches:
+    """Phase 2 of a produce round (client/codec_phase.py) over ``ready``,
+    ``(tp, msgs, writer)`` triples, with each topic's compression.level
+    and topic.qos.weight."""
+    conf = rk.topic_conf_for
+    weights: dict = {}
 
-    __slots__ = ("codec_id", "pid", "epoch", "base_seq", "now_ms",
-                 "attrs")
+    def qos(item):
+        topic = item[0].topic
+        w = weights.get(topic)
+        if w is None:
+            w = weights[topic] = float(
+                conf(topic).get("topic.qos.weight") or 1.0)
+        return topic, w
 
-    def __init__(self, codec_id: int, pid: int, epoch: int,
-                 base_seq: int, now_ms: int, attrs: int = 0):
-        self.codec_id = codec_id
-        self.pid = pid
-        self.epoch = epoch
-        self.base_seq = base_seq
-        self.now_ms = now_ms
-        # extra v2 attribute bits (ATTR_TRANSACTIONAL for EOS batches)
-        self.attrs = attrs
-
-
-def _fused_builder():
-    from .arena import _mod
-    m = _mod()
-    return getattr(m, "build_batch", None) if m else None
-
-
-class _PendingCodec:
-    """A codec phase in flight on the async offload engine
-    (ops/engine.py), as a two-stage state machine:
-
-      stage "compress" — the per-(codec,level) compress groups ride the
-        engine as host-job tickets (``comp_tickets``), so compression
-        of batch k+1 runs on the dispatch thread while batch k's CRC
-        launch executes on the device.  When they resolve, the writers
-        assemble and the CRC batch is submitted.
-      stage "crc" — the writers in ``assembled`` await their ticket's
-        checksums; finish() patches CRCs and returns the results in
-        ``ready`` order.
-
-    done() advances the state machine opportunistically so the codec
-    worker's poll loop pipelines both stages without blocking."""
-
-    __slots__ = ("rk", "by_idx", "n", "writer_items", "assembled",
-                 "ticket", "comp_tickets", "t_compress_ns", "t_crc_ns")
-
-    def __init__(self, rk, by_idx: dict, n: int, writer_items: list):
-        self.rk = rk
-        self.by_idx = by_idx
-        self.n = n
-        self.writer_items = writer_items    # [(idx, (tp, msgs, writer))]
-        self.comp_tickets = None            # [(idxs, ticket)] stage 1
-        self.assembled = []                 # [(idx, (tp, msgs, writer))]
-        self.ticket = None                  # CRC ticket, stage 2
-        self.t_compress_ns = 0              # compress submit (trace)
-        self.t_crc_ns = 0                   # CRC submit (trace)
-
-    def done(self) -> bool:
-        if self.comp_tickets is not None:
-            if not all(t.done() for _i, t in self.comp_tickets):
-                return False
-            self._assemble()
-        return self.ticket is None or self.ticket.done()
-
-    def _assemble(self) -> None:
-        """Compress tickets resolved: incompressible check + writer
-        assembly + CRC submit — exactly the synchronous phase tail."""
-        tickets, self.comp_tickets = self.comp_tickets, None
-        blobs: dict[int, bytes] = {}
-        try:
-            for idxs, t in tickets:
-                for i, blob in zip(idxs, t.result(120)):
-                    blobs[i] = blob
-        except Exception as e:      # a failed group fails the batch set
-            for i, (tp, msgs, _w) in self.writer_items:
-                self.by_idx[i] = (tp, msgs, None, e)
-            return
-        if self.t_compress_ns:
-            # compress-ticket span: submit -> all groups resolved
-            _trace.complete("produce", "compress", self.t_compress_ns,
-                            {"groups": len(tickets),
-                             "batches": len(self.writer_items)})
-        if _trace.enabled:
-            self.t_crc_ns = _trace.now()
-        self.assembled, self.ticket = _assemble_and_submit_crc(
-            self.rk, self.writer_items, self.by_idx, blobs)
-
-    def finish(self) -> list:
-        if self.comp_tickets is not None:
-            self._assemble()        # blocks on the compress tickets
-        if self.ticket is not None:
-            try:
-                crcs = self.ticket.result()
-            except Exception as e:
-                for i, (tp, msgs, _w) in self.assembled:
-                    self.by_idx[i] = (tp, msgs, None, e)
-            else:
-                for (i, (tp, msgs, w)), crc in zip(self.assembled, crcs):
-                    self.by_idx[i] = (tp, msgs, w.patch_crc(int(crc)),
-                                      None)
-            if self.t_crc_ns:
-                # CRC-ticket span: submit -> checksums patched (covers
-                # the engine's fan-in wait + launch + readback)
-                _trace.complete("produce", "crc_ticket", self.t_crc_ns,
-                                {"batches": len(self.assembled)})
-        return [self.by_idx[i] for i in range(self.n)]
-
-
-def _run_codec_phase(rk, ready: list) -> list:
-    """Compress + assemble + CRC a batch set, synchronously. Pure
-    compute — safe on any thread. Returns
-    [(tp, msgs, wire|None, exc|None)] in ``ready`` order (same-tp
-    batches must stay FIFO)."""
-    results, pending = _begin_codec_phase(rk, ready)
-    return results if pending is None else pending.finish()
-
-
-def _begin_codec_phase(rk, ready: list):
-    """Phase 2 with an async seam: returns ``(results, None)`` when the
-    whole phase resolved synchronously, or ``(None, _PendingCodec)``
-    when the provider accepted the CRC batch as an async ticket — the
-    caller overlaps other work and calls pending.finish() later.
-
-    ArenaBatches carrying a _FusedJob take the fused native path; the
-    rest (Message batches, non-native codecs, device-routed providers)
-    run the 3-phase writer pipeline."""
-    build = _fused_builder()
-    by_idx: dict[int, tuple] = {}
-    writer_items: list[tuple[int, tuple]] = []
-    for i, item in enumerate(ready):
-        tp, msgs, w = item
-        if isinstance(w, _FusedJob):
-            try:
-                if build is None:       # extension vanished mid-flight
-                    raise RuntimeError("fused builder unavailable")
-                t0 = _trace.now() if _trace.enabled else 0
-                wire = build(msgs.base, msgs.klens, msgs.vlens,
-                             msgs.count, w.now_ms, w.pid, w.epoch,
-                             w.base_seq, w.codec_id, w.attrs,
-                             msgs.tss, msgs.hbuf, msgs.hlens)
-                if t0:
-                    # the one-call frame+compress+CRC fast lane
-                    _trace.complete("produce", "fused_build", t0,
-                                    {"topic": tp.topic,
-                                     "partition": tp.partition,
-                                     "msgs": msgs.count})
-                by_idx[i] = (tp, msgs, wire, None)
-            except Exception as e:
-                by_idx[i] = (tp, msgs, None, e)
-        else:
-            writer_items.append((i, item))
-    pending = None
-    if writer_items:
-        pending = _begin_writer_phase(rk, writer_items, by_idx, len(ready))
-    if pending is not None:
-        return None, pending
-    return [by_idx[i] for i in range(len(ready))], None
-
-
-def _begin_writer_phase(rk, writer_items: list, by_idx: dict,
-                        n: int):
-    """Compress + assemble the non-fused batches, filling ``by_idx`` for
-    failures.  With an engine-backed provider BOTH codec stages go
-    async: compression rides ``compress_submit`` (an engine host job,
-    overlapping the previous batch's in-flight CRC launch) and the CRC
-    batch rides ``crc32c_submit``; otherwise each stage runs
-    synchronously here.  Returns a _PendingCodec or None (phase fully
-    resolved into ``by_idx``)."""
-    provider = rk.codec_provider
-    # compression.codec and compression.level are topic-scoped:
-    # group the fan-in by (codec, level) so one serve pass honors
-    # every topic's settings (each writer carries its own codec,
-    # resolved at batch formation via Broker._codec_for)
-    by_key: dict = {}
-    for i, (tp, _msgs, w) in writer_items:
-        if w.codec is None:
-            continue
-        lvl = rk.topic_conf_for(tp.topic).get("compression.level")
-        by_key.setdefault((w.codec, lvl), []).append(i)
-    items = {i: item for i, item in writer_items}
-
-    csub = getattr(provider, "compress_submit", None)
-    if csub is not None and by_key:
-        t_comp = _trace.now() if _trace.enabled else 0
-        # topic.qos.weight: per-buffer (topic, weight) pairs feed the
-        # engine's weighted fan-in + shed model.  Only offered to
-        # providers that declare accepts_qos — test doubles keep the
-        # 3-arg compress_submit signature.
-        accepts_qos = getattr(provider, "accepts_qos", False)
-        wcache: dict = {}
-        comp_tickets = []
-        for (cdc, lvl), idxs in by_key.items():
-            try:
-                if accepts_qos:
-                    qos = []
-                    for i in idxs:
-                        topic = items[i][0].topic
-                        w = wcache.get(topic)
-                        if w is None:
-                            w = float(rk.topic_conf_for(topic).get(
-                                "topic.qos.weight") or 1.0)
-                            wcache[topic] = w
-                        qos.append((topic, w))
-                    t = csub(cdc,
-                             [items[i][2].records_bytes for i in idxs],
-                             lvl, qos=qos)
-                else:
-                    t = csub(cdc,
-                             [items[i][2].records_bytes for i in idxs],
-                             lvl)
-            except Exception:
-                t = None
-            if t is None:           # pipeline disabled: sync route below
-                comp_tickets = None
-                break
-            comp_tickets.append((idxs, t))
-        if comp_tickets is not None:
-            pend = _PendingCodec(rk, by_idx, n, writer_items)
-            pend.comp_tickets = comp_tickets
-            pend.t_compress_ns = t_comp
-            return pend
-
-    try:
-        t_comp = _trace.now() if _trace.enabled else 0
-        blobs = {}
-        for (cdc, lvl), idxs in by_key.items():
-            out = provider.compress_many(
-                cdc, [items[i][2].records_bytes for i in idxs], lvl)
-            for i, blob in zip(idxs, out):
-                blobs[i] = blob
-        if t_comp and by_key:
-            _trace.complete("produce", "compress", t_comp,
-                            {"groups": len(by_key),
-                             "batches": len(writer_items)})
-    except Exception as e:
-        for i, (tp, msgs, _w) in writer_items:
-            by_idx[i] = (tp, msgs, None, e)
-        return None
-
-    t_crc = _trace.now() if _trace.enabled else 0
-    assembled, ticket = _assemble_and_submit_crc(rk, writer_items,
-                                                 by_idx, blobs)
-    if ticket is None:
-        return None
-    pend = _PendingCodec(rk, by_idx, n, writer_items)
-    pend.assembled = assembled
-    pend.ticket = ticket
-    pend.t_crc_ns = t_crc
-    return pend
-
-
-def _assemble_and_submit_crc(rk, writer_items: list, by_idx: dict,
-                             blobs: dict):
-    """Incompressible check + writer assembly; the CRC batch goes to
-    the provider's async submit seam when it has one
-    (``crc32c_submit`` -> Ticket), else it is computed synchronously
-    into ``by_idx``.  Returns ``(assembled, ticket)`` — ticket None
-    means the CRC stage fully resolved here."""
-    provider = rk.codec_provider
-    assembled = []                # (idx, (tp, msgs, writer))
-    regions = []                  # CRC region per batch
-    for i, (tp, msgs, writer) in writer_items:
-        blob = blobs.get(i)
-        try:
-            if blob is not None and len(blob) >= len(writer.records_bytes):
-                blob = None       # incompressible: send plain
-                writer.codec = None
-            region = writer.assemble(blob)
-            if isinstance(blob, FrameBlob):
-                # fused compress→CRC route: the frame came
-                # back from the device with per-part CRCs — fold the
-                # batch CRC over the 21-byte header prefix with
-                # crc32c_combine instead of re-scanning the frame.
-                crc = blob.region_crc(
-                    bytes(region[:len(region) - len(blob)]))
-                by_idx[i] = (tp, msgs, writer.patch_crc(crc), None)
-                continue
-            regions.append(region)
-            assembled.append((i, (tp, msgs, writer)))
-        except Exception as e:
-            by_idx[i] = (tp, msgs, None, e)
-    if not assembled:
-        return [], None
-    submit = getattr(provider, "crc32c_submit", None)
-    if submit is not None:
-        try:
-            ticket = submit(regions)
-        except Exception:
-            ticket = None
-        if ticket is not None:
-            return assembled, ticket
-    try:
-        crcs = provider.crc32c_many(regions)
-        for (i, (tp, msgs, writer)), crc in zip(assembled, crcs):
-            by_idx[i] = (tp, msgs, writer.patch_crc(int(crc)), None)
-    except Exception as e:
-        for i, (tp, msgs, _w) in assembled:
-            by_idx[i] = (tp, msgs, None, e)
-    return [], None
+    return codec_phase.begin_round(
+        rk.codec_provider, ready,
+        lambda item: conf(item[0].topic).get("compression.level"), qos)
 
 
 class _PendingFetch:
     """A fetch partition whose phase-B CRC verify and phase-C decompress
     are in flight as offload tickets (the consumer mirror of
-    _PendingCodec): phase-A framing/splitting is done, the partition's
+    codec_phase.PendingBatches): phase-A framing/splitting is done, the partition's
     ``fetch_in_flight`` claim is still held, and phase D (parse +
     delivery) runs at resolve time — strictly FIFO per broker, so
     per-partition delivery order is preserved exactly."""
@@ -561,7 +279,7 @@ class CodecWorker(threading.Thread):
         worker frames + compresses the NEXT job while the device
         executes, and patches checksums when tickets resolve — the
         double-buffered overlap (a synchronous loop would block inside
-        _run_codec_phase for every device round-trip).  ``pending``
+        the codec phase for every device round-trip).  ``pending``
         drains strictly FIFO so per-partition send order — and with it
         idempotent sequence order — is preserved."""
         pending: deque = deque()
@@ -598,12 +316,14 @@ class CodecWorker(threading.Thread):
                 return
             broker, ready, ts_codec, pepoch = job
             try:
-                results, pend = _begin_codec_phase(self.rk, ready)
+                pend = _begin_codec_phase(self.rk, ready)
             except Exception as e:      # belt & braces: fail every batch
-                results, pend = ([(tp, msgs, None, e)
-                                  for tp, msgs, _w in ready], None)
-            if pend is None:
-                self._post(broker, results, ts_codec, pepoch)
+                self._post(broker, [(tp, msgs, None, e)
+                                    for tp, msgs, _w in ready],
+                           ts_codec, pepoch)
+                continue
+            if pend.resolved:
+                self._post(broker, pend.finish(), ts_codec, pepoch)
             else:
                 pending.append((broker, pend, ts_codec, pepoch))
                 self.inflight_hwm = max(self.inflight_hwm, len(pending))
@@ -1688,8 +1408,8 @@ class Broker:
             self._codec_outstanding += 1
             worker.submit(self, ready, ts_codec, rk._purge_epoch)
             return
-        self._codec_results(_run_codec_phase(rk, ready), ts_codec,
-                            rk._purge_epoch)
+        self._codec_results(_begin_codec_phase(rk, ready).finish(),
+                            ts_codec, rk._purge_epoch)
 
     def _codec_results(self, results: list, ts_codec: float,
                        purge_epoch: int):
@@ -1760,10 +1480,10 @@ class Broker:
             # transactional bit into the attribute word
             cid = getattr(rk.codec_provider, "fused_codec_id",
                           lambda c: None)(codec)
-            if cid is not None and _fused_builder() is not None:
-                return _FusedJob(cid, pid, epoch, base_seq, now_ms,
-                                 ATTR_TRANSACTIONAL if transactional
-                                 else 0)
+            if cid is not None and codec_phase.fused_builder() is not None:
+                return codec_phase.FusedJob(
+                    cid, pid, epoch, base_seq, now_ms,
+                    ATTR_TRANSACTIONAL if transactional else 0)
         w = MsgsetWriterV2(producer_id=pid, producer_epoch=epoch,
                            base_sequence=base_seq,
                            transactional=transactional,
@@ -2512,99 +2232,39 @@ class Broker:
             delta += max(0, after - before)
         return delta
 
-    @staticmethod
-    def _codec_submit(provider, submit_name: str, sync_fn, regions):
-        """Submit a CRC batch through the provider's async seam
-        (``crc32c_submit`` / ``crc32_submit``), falling back to a
-        pre-resolved ticket computed synchronously right here — an
-        exception is carried in the ticket and re-raises at resolve
-        time, exactly where the synchronous path raised it."""
-        submit = getattr(provider, submit_name, None)
-        if submit is not None:
-            try:
-                t = submit(regions)
-            except Exception:
-                t = None
-            if t is not None:
-                return t
-        try:
-            return SyncTicket(sync_fn(regions))
-        except Exception as e:
-            return SyncTicket(exc=e)
-
-    @staticmethod
-    def _decompress_submit(provider, codec: str, bufs: list):
-        sub = getattr(provider, "decompress_submit", None)
-        if sub is not None:
-            try:
-                t = sub(codec, bufs)
-            except Exception:
-                t = None
-            if t is not None:
-                return t
-        try:
-            return SyncTicket(provider.decompress_many(codec, bufs))
-        except Exception as e:
-            return SyncTicket(exc=e)
-
     def _begin_fetch_partition(self, entry) -> _PendingFetch:
-        """Phases B+C with the async seam: submit this partition's CRC
-        verify regions (both polynomials) and decompress jobs as
-        offload tickets and return a _PendingFetch.  Submission order —
-        CRC first, then the host decompress job — matches the engine's
-        dispatch order, so the device executes the CRC launch while the
-        dispatch thread inflates the payloads.  Providers without an
-        async seam resolve through pre-resolved SyncTickets: same code
-        path, synchronous schedule, identical bytes."""
+        """Phases B+C: submit this partition's CRC verify regions (both
+        polynomials) and decompress jobs through
+        codec_phase.submit_fetch and return a _PendingFetch.  Providers
+        without an async seam resolve through pre-resolved SyncTickets:
+        same code path, synchronous schedule, identical bytes."""
         rk = self.rk
-        provider = rk.codec_provider
-        from ..protocol.msgset import iter_legacy_crc_regions
         tp, pres, batches, fo, ver = entry
         pend = _PendingFetch(entry)
         pend.t_submit_ns = time.monotonic_ns()
-        # phase B: batched CRC verify for this partition
+        regions, lregions = [], []
         if rk.conf.get("check.crcs"):
             if batches:
                 regions = [b[3][proto.V2_OF_Attributes:]
                            for b in batches if b[2] >= fo]
-                if regions:
-                    pend.crc_infos = [b[0] for b in batches
-                                      if b[2] >= fo]
-                    pend.crc_ticket = self._codec_submit(
-                        provider, "crc32c_submit", provider.crc32c_many,
-                        regions)
+                pend.crc_infos = [b[0] for b in batches if b[2] >= fo]
             else:
-                # legacy MsgVer0/1 blobs: per-message zlib CRC,
-                # same batched provider seam (the CRC kernel on
-                # the gpu backend; reference verifies inline,
-                # rdkafka_msgset_reader.c v0/v1). The phase-A
-                # segment split keeps v2 batches out of this walk.
-                lregions, lowners = [], []
+                # legacy MsgVer0/1 blobs: per-message zlib CRC (reference
+                # verifies inline, rdkafka_msgset_reader.c v0/v1).  The
+                # phase-A segment split keeps v2 batches out of this walk
+                lowners = []
                 for kind, seg in pres.get("_segments") or []:
                     if kind != "legacy":
                         continue
                     for off, crc, region in iter_legacy_crc_regions(seg):
                         lregions.append(region)
                         lowners.append((off, crc))
-                if lregions:
-                    pend.legacy_owners = lowners
-                    pend.legacy_ticket = self._codec_submit(
-                        provider, "crc32_submit", provider.crc32_many,
-                        lregions)
-        # phase C: batched decompress, submitted eagerly (not gated on
-        # the CRC results): a mismatch is the rare path and its
-        # decompressed bytes are simply discarded at resolve time —
-        # wire-visible behavior is identical to verify-then-decompress
-        if batches:
-            by_codec: dict[str, list] = {}
-            for b in batches:
-                info, _payload, last, _full = b
-                if last >= fo and info.codec:
-                    by_codec.setdefault(info.codec, []).append(b)
-            pend.dec_tickets = [
-                (codec, items, self._decompress_submit(
-                    provider, codec, [b[1] for b in items]))
-                for codec, items in by_codec.items()]
+                pend.legacy_owners = lowners
+        pend.crc_ticket, pend.legacy_ticket, pend.dec_tickets = \
+            codec_phase.submit_fetch(
+                rk.codec_provider, regions, lregions,
+                [(b[0].codec, b, b[1]) for b in batches or ()
+                 if b[2] >= fo and b[0].codec])
         return pend
 
     def _finish_fetch_partition(self, pend: _PendingFetch) -> None:

@@ -20,6 +20,9 @@ import zlib
 import numpy as np
 
 from .native.build import build
+# the tk_torch_enqlane extension's batched codec entry points (no-join
+# crc32c_many / in-place decompress_many), or None
+from .native.build import enqlane as _ext
 
 _lib = None
 
@@ -491,26 +494,6 @@ CODECS = {
     "zstd": (lambda d, lvl=-1: zstd_compress(d, lvl),
              lambda d, hint=0: zstd_decompress(d, hint)),
 }
-
-
-_EXT = None
-_EXT_ERR = False
-
-
-def _ext():
-    """The tk_torch_enqlane extension's batched codec entry points (no-join
-    crc32c_many / in-place decompress_many), or None."""
-    global _EXT, _EXT_ERR
-    if _EXT is None and not _EXT_ERR:
-        try:
-            from .native.build import load_enqlane
-            m = load_enqlane()
-            _EXT = m if hasattr(m, "crc32c_many") else None
-            if _EXT is None:
-                _EXT_ERR = True
-        except Exception:
-            _EXT_ERR = True
-    return _EXT
 
 
 class SyncTicket:

@@ -10,6 +10,7 @@ The port's copy of librdkafka_tpu/ops/native/build.py.  Two artifacts:
 """
 from __future__ import annotations
 
+import fcntl
 import os
 import subprocess
 import sysconfig
@@ -22,20 +23,35 @@ ENQ_NAME = "tk_torch_enqlane"
 ENQ_SRC = os.path.join(_DIR, "enqlane.cpp")
 ENQ_SO = os.path.join(_DIR, ENQ_NAME + ".so")
 _lock = threading.Lock()
+_load_lock = threading.Lock()
+_enqlane = None         # the loaded extension module
+_enqlane_err = None     # or why it could not be built or loaded
+
+
+def _fresh(so: str, srcs: list[str]) -> bool:
+    return (os.path.exists(so)
+            and all(os.path.getmtime(so) >= os.path.getmtime(s)
+                    for s in srcs))
 
 
 def _compile(src, so: str, extra: list[str]) -> str:
     srcs = [src] if isinstance(src, str) else list(src)
-    if (os.path.exists(so)
-            and all(os.path.getmtime(so) >= os.path.getmtime(s)
-                    for s in srcs)):
+    if _fresh(so, srcs):
         return so
-    # per-process temp name: parallel test workers may build at once
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
-           *extra, "-o", tmp, *srcs]
-    subprocess.run(cmd, check=True, capture_output=True)
-    os.replace(tmp, so)
+    # one compile of an artifact at a time across processes: parallel
+    # workers wait for the first g++ run and load its output
+    with open(so + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if _fresh(so, srcs):
+            return so
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
+               *extra, "-o", tmp, *srcs]
+        try:
+            subprocess.run(cmd, check=True, capture_output=True, text=True)
+        except subprocess.CalledProcessError as e:
+            raise RuntimeError(f"{' '.join(cmd)} failed:\n{e.stderr}") from e
+        os.replace(tmp, so)
     return so
 
 
@@ -90,3 +106,24 @@ def load_enqlane():
         return _load(build_enqlane())
     except ImportError:
         return _load(build_enqlane(force=True))
+
+
+def enqlane():
+    """The tk_torch_enqlane module, built and loaded once a process, or
+    None when that failed (:func:`enqlane_error` says why).  The enqueue
+    lane (client/arena.py) and the batched codec calls (ops/cpu.py) both
+    read this one cache."""
+    global _enqlane, _enqlane_err
+    if _enqlane is None and _enqlane_err is None:
+        with _load_lock:
+            if _enqlane is None and _enqlane_err is None:
+                try:
+                    _enqlane = load_enqlane()
+                except Exception as e:
+                    _enqlane_err = f"{type(e).__name__}: {e}"
+    return _enqlane
+
+
+def enqlane_error() -> str | None:
+    """Why :func:`enqlane` returned None, or None."""
+    return _enqlane_err

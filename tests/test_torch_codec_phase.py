@@ -10,8 +10,9 @@ from librdkafka_tpu.ops import cpu as jax_cpu
 from librdkafka_tpu.ops.tpu import TpuCodecProvider
 from librdkafka_tpu.protocol import msgset as jms
 from librdkafka_tpu_torch import (CpuCodecProvider, GpuCodecProvider,
-                                  read_batches, submit_batches, submit_read,
-                                  write_batches)
+                                  Producer, read_batches, submit_batches,
+                                  submit_read, write_batches)
+from librdkafka_tpu_torch.client import codec_phase
 from librdkafka_tpu_torch.obs import metrics as port_metrics
 from librdkafka_tpu_torch.obs import trace as port_trace
 from librdkafka_tpu_torch.ops import crc32c_torch
@@ -173,7 +174,7 @@ def test_submit_batches_pipelined_equals_sync_and_jax(gpu_cpu):
     package's flow."""
     rounds = [_values(10 + k) for k in range(3)]
     pend = [submit_batches(gpu_cpu, _parts(v), "lz4", NOW) for v in rounds]
-    assert isinstance(pend[0].comp[1], Ticket)
+    assert isinstance(pend[0].comp[0][1], Ticket)
     sync = GpuCodecProvider(device="cpu", min_batches=1, pipeline_depth=0)
     try:
         for p, values in zip(pend, rounds):
@@ -198,7 +199,7 @@ def test_submit_batches_without_seams_is_synchronous():
 
     values = _values(5)
     p = submit_batches(Plain(), _parts(values), "lz4", NOW)
-    assert p.comp is None and isinstance(p.crc, SyncTicket)
+    assert p.comp is None and p.crc is None and p.resolved
     assert p.result() == write_batches(CpuCodecProvider(), _parts(values),
                                        "lz4", NOW)
 
@@ -244,3 +245,87 @@ def test_submit_read_mixed_v2_and_legacy(gpu_cpu):
     bad[-1] ^= 0x01
     with pytest.raises(pms.CrcMismatch, match="legacy"):
         submit_read(gpu_cpu, [v2[2], bytes(bad)]).result(120)
+
+
+# ------------------------------------------- the broker runs this module --
+
+GPU_CPU = {"compression.backend": "gpu", "gpu.device": "cpu",
+           "gpu.governor": False, "gpu.launch.min.batches": 1}
+
+
+def _produce(counts, values, errors=None) -> list[list[bytes]]:
+    """One flush of ``counts[i]`` records to partition i, each with an
+    explicit timestamp, through a GPU-provider Producer on the CPU on its
+    own mock; returns each partition's stored blobs.  Failed deliveries
+    go to ``errors`` as (partition, error name)."""
+    p = Producer({"bootstrap.servers": "", "test.mock.num.brokers": 1,
+                  "test.mock.default.partitions": len(counts),
+                  "compression.codec": "lz4", "linger.ms": 1000,
+                  **GPU_CPU})
+
+    def dr(err, msg):
+        if err is not None:
+            errors.append((msg.partition, err.code.name))
+
+    try:
+        for i, n in enumerate(counts):
+            for j in range(n):
+                p.produce("cp", value=values[i][j], partition=i,
+                          timestamp=NOW + j, on_delivery=dr)
+        assert p.flush(120) == 0
+        mc = p._rk.mock_cluster
+        return [[bytes(b) for _base, b in mc.partition("cp", i).log]
+                for i in range(len(counts))]
+    finally:
+        p.close()
+
+
+def test_producer_round_runs_the_writer_phase(monkeypatch):
+    """A Producer's produce round is codec_phase.begin_round: every
+    stored batch went through it, and counting its calls changes no
+    stored byte."""
+    values, counts = _values(8), [RECORDS] * 3
+    want = _produce(counts, values)
+    calls = []
+    begin = codec_phase.begin_round
+
+    def counted(provider, items, *a, **kw):
+        calls.append(len(items))
+        return begin(provider, items, *a, **kw)
+
+    monkeypatch.setattr(codec_phase, "begin_round", counted)
+    assert _produce(counts, values) == want
+    assert calls and sum(calls) == sum(len(blobs) for blobs in want)
+
+
+@pytest.mark.parametrize("front", ["producer", "submit_batches"])
+def test_one_bad_batch_fails_only_itself(front, monkeypatch, gpu_cpu):
+    """A batch whose assembly raises fails alone, through the broker and
+    through the front end: the round's other batches ship the bytes
+    they have without it."""
+    values, counts = _values(9), [RECORDS, 3, RECORDS]
+    parts = [_parts(values)[i][:n] for i, n in enumerate(counts)]
+    want = (_produce(counts, values) if front == "producer"
+            else write_batches(gpu_cpu, parts, "lz4", NOW))
+    assemble = pms.MsgsetWriterV2.assemble
+
+    def bad_assemble(w, blob):
+        if w.record_count == 3:
+            raise RuntimeError("bad batch")
+        return assemble(w, blob)
+
+    monkeypatch.setattr(pms.MsgsetWriterV2, "assemble", bad_assemble)
+    # the fused fast lane assembles nothing: keep the batches on writers
+    monkeypatch.setattr(codec_phase, "fused_builder", lambda: None)
+    if front == "producer":
+        errors = []
+        got = _produce(counts, values, errors)
+        assert errors == [(1, "_FAIL")] * 3
+        assert got == [want[0], [], want[2]]
+        return
+    pend = submit_batches(gpu_cpu, parts, "lz4", NOW)
+    out = pend.finish(120, 120)
+    assert [o[2] for o in out] == [want[0], None, want[2]]
+    assert isinstance(out[1][3], RuntimeError)
+    with pytest.raises(RuntimeError, match="bad batch"):
+        pend.result()

@@ -17,10 +17,11 @@ from librdkafka_tpu.ops.tpu import TpuCodecProvider
 from librdkafka_tpu.protocol.msgset import MsgsetWriterV2 as RefWriter
 from librdkafka_tpu_torch.client import arena as port_arena
 from librdkafka_tpu_torch.client.arena import ArenaBatch
-from librdkafka_tpu_torch.client.broker import _fused_builder
+from librdkafka_tpu_torch.client.codec_phase import fused_builder
 from librdkafka_tpu_torch.ops import cpu as port_cpu
 from librdkafka_tpu_torch.ops import packing as port_packing
 from librdkafka_tpu_torch.ops.gpu import GpuCodecProvider
+from librdkafka_tpu_torch.ops.native.build import enqlane_error
 from librdkafka_tpu_torch.protocol.msgset import MsgsetWriterV2
 
 NOW_MS = 1_700_000_000_000
@@ -58,7 +59,8 @@ def _run(seed: int, n: int, ts: bool, hdrs: bool):
 
 def test_port_lane_loads_beside_the_reference():
     port, ref = port_arena._mod(), ref_arena._mod()
-    assert port is not None, "the port's enqueue lane did not build"
+    assert port is not None, \
+        f"the port's enqueue lane did not build: {enqlane_error()}"
     assert ref is not None
     assert port is not ref
     assert port.__name__ == "tk_torch_enqlane"
@@ -67,7 +69,7 @@ def test_port_lane_loads_beside_the_reference():
         str(port_arena.__file__).rsplit("client", 1)[0])
     # the fast lane really is native: the lane object is the extension's
     assert type(port_arena.lane_new()).__module__ == "tk_torch_enqlane"
-    assert port_cpu._ext() is port and _fused_builder() is port.build_batch
+    assert port_cpu._ext() is port and fused_builder() is port.build_batch
 
 
 @pytest.mark.parametrize("ts,hdrs", [(False, False), (True, False),
@@ -97,8 +99,8 @@ def test_build_arena_and_run_framer_bytes_equal(ts, hdrs):
 def test_fused_build_equals_reference_and_three_phase(codec, idem):
     base, kl, vl, n, tss, hb, hl = _run(7 + idem, 200, True, True)
     pid, epoch, seq = (1234, 7, 99) if idem else (-1, -1, -1)
-    got = _fused_builder()(base, kl, vl, n, NOW_MS, pid, epoch, seq,
-                           CODEC_ID[codec], 0, tss, hb, hl)
+    got = fused_builder()(base, kl, vl, n, NOW_MS, pid, epoch, seq,
+                          CODEC_ID[codec], 0, tss, hb, hl)
     want = ref_arena._mod().build_batch(base, kl, vl, n, NOW_MS, pid, epoch,
                                         seq, CODEC_ID[codec], 0, tss, hb, hl)
     assert bytes(got) == bytes(want)
