@@ -1380,19 +1380,32 @@ def no_cpu_compress(eng, what: str) -> None:
     check(not bad, f"{what}: compress jobs served on the CPU: {bad}")
 
 
+def wall_ms(fn, reps: int = 10) -> float:
+    """Median host-clock time of host-only work ``fn`` (no device sync:
+    beside a thread that keeps the GIL busy, a sync would add the wait
+    to take the GIL back)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
 def lz4_split(bufs) -> dict:
-    """Host-clock ms (median of 10, each step ending in a device sync) of
-    the compress route's steps for one round's buffers, taken one by one
-    as the engine takes them on a lane of its own."""
-    lane = crc.LaneBuffers(torch.device("cuda", 0))
-    rb = torch.cuda.Stream()
+    """Host-clock ms (median of 10) of the compress route's steps for one
+    round's buffers, taken one by one as the engine takes them on a lane
+    of its own: the native pack, the launch's native call, the native
+    readback and the frames; each device step ends in a sync."""
+    lane = lz4.Lz4Lane(crc.LaneBuffers(torch.device("cuda", 0)))
     lens = np.array([len(b) for b in bufs], np.int64)
     plan = lz4.plan_lz4(lens)
     slot = crc.Slot(crc.slot_bucket(plan.nbytes), pin=True)
-    lz4.fill_lz4(slot, plan, bufs)
-    handle = lz4.launch_lz4(slot, plan, lane)
-    res = lz4.read_lz4(slot, plan, handle, rb)
-    packed, offs, olen = res[0], res[1], res[2]
+    lz4.pack_lz4(slot, plan, bufs)
+    lz4.launch_lz4(slot, plan, lane)
+    # copies: the slot's views change with its next launch
+    packed, offs, olen, cc, cr = (np.copy(x) for x in
+                                  lz4.read_lz4(slot, plan, lane))
     check([packed[o:o + n].tobytes() for o, n in zip(offs, olen)]
           == [native.lz4_block_compress(bufs[k][i * LZ4F_BLOCKSIZE:
                                                 (i + 1) * LZ4F_BLOCKSIZE])
@@ -1403,36 +1416,53 @@ def lz4_split(bufs) -> dict:
         mv = memoryview(packed)
         for k, (first, nb) in enumerate(plan.spans):
             raw = memoryview(bufs[k])
-            lz4_frame_of(mv, raw, first, nb, offs, olen, res[3], res[4])
+            lz4_frame_of(mv, raw, first, nb, offs, olen, cc, cr)
 
     def h2d():
-        with torch.cuda.stream(lane.stream):
-            lane.flat[:plan.nbytes].copy_(slot.host[:plan.nbytes],
-                                          non_blocking=True)
-        lane.stream.synchronize()
+        with torch.cuda.stream(lane.bufs.stream):
+            lane.bufs.flat[:plan.nbytes].copy_(slot.host[:plan.nbytes],
+                                               non_blocking=True)
+        lane.bufs.stream.synchronize()
 
     def launch():
-        h = lz4.launch_lz4(slot, plan, lane)
-        lane.stream.synchronize()
-        return h
+        lz4.launch_lz4(slot, plan, lane)
+        lane.bufs.stream.synchronize()
 
     def readback() -> float:
         times = []
         for _ in range(10):
-            h = launch()
+            launch()
             t0 = time.perf_counter()
-            lz4.read_lz4(slot, plan, h, rb)
+            lz4.read_lz4(slot, plan, lane)
             times.append((time.perf_counter() - t0) * 1e3)
         return statistics.median(times)
 
     return {
-        "plan + pinned fill": host_ms(
-            lambda: lz4.fill_lz4(slot, lz4.plan_lz4(lens), bufs), 10),
+        "plan + native pack": wall_ms(
+            lambda: lz4.pack_lz4(slot, lz4.plan_lz4(lens), bufs)),
         "H2D alone (pinned, lane stream)": host_ms(h2d, 10),
-        "H2D + kernel + metadata D2H": host_ms(launch, 10),
-        "readback (event, the cursor's bytes D2H)": readback(),
-        "frame assembly (lz4f_frame)": host_ms(frames, 10),
+        "native launch: H2D + kernel + metadata D2H": host_ms(launch, 10),
+        "native readback (event, the cursor's bytes D2H)": readback(),
+        "frame assembly (lz4f_frame)": wall_ms(frames),
     }
+
+
+def lz4_split_busy(bufs) -> dict:
+    """:func:`lz4_split` while a pure-Python thread spins beside it."""
+    stop = threading.Event()
+
+    def spin():
+        n = 0
+        while not stop.is_set():
+            n += 1
+
+    t = threading.Thread(target=spin, name="gil-spin")
+    t.start()
+    try:
+        return lz4_split(bufs)
+    finally:
+        stop.set()
+        t.join(10)
 
 
 def lz4_frame_of(mv, raw, first, nb, offs, olen, cc, cr):
@@ -1560,6 +1590,8 @@ def phase_lz4(cpu_p, work: dict, rng) -> dict:
               for k, v in clk.items()))
     print("  compress route of one round, host clock ms: " + "; ".join(
         f"{k} {v:.4f}" for k, v in lz4_split(bufs).items()))
+    print("  the same beside a thread that keeps the GIL busy: " + "; ".join(
+        f"{k} {v:.4f}" for k, v in lz4_split_busy(bufs).items()))
     t_prod = {"device compress": 0.0, "cpu deterministic": 0.0,
               "cpu default": 0.0}
     for _ in range(2):                       # a warm turn, then timed turns

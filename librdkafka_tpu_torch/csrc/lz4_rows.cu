@@ -867,3 +867,89 @@ extern "C" int lz4_rows_launch(const void* data, const void* row_offsets,
                     lz4_rows_smem(N), static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
+
+namespace {
+
+// Makes `device` current for a call and restores the caller's after.
+struct OnDevice {
+  int prev = -1, dev;
+  cudaError_t err;
+  explicit OnDevice(int d) : dev(d) {
+    err = cudaGetDevice(&prev);
+    if (err == cudaSuccess && prev != dev) err = cudaSetDevice(dev);
+  }
+  ~OnDevice() {
+    if (prev >= 0 && prev != dev) cudaSetDevice(prev);
+  }
+};
+
+}  // namespace
+
+// One round of the offload engine's compress route (ops/lz4_torch.py
+// launch_lz4), queued on `stream` of `device` in one call: the H2D copy of
+// the pinned slot (`nbytes` of `host` into `flat`: the blocks in
+// `flat_bytes`, then B int64 row offsets and B int32 lengths), the metadata
+// zeroed, a device-side wait for `wait` (the card's last launch when it
+// ran on another stream, else null), the kernel with both CRCs into the
+// packed `comp`, the metadata (`out_words` int64: cursor, offsets,
+// crc_comp, crc_raw, then olen as int32 pairs) copied back into pinned
+// `meta_host`, and `done` recorded.  `scratch` holds `scratch_bytes`.
+// Returns a cudaError_t (0 = queued).
+extern "C" int lz4_rows_round(int device, const void* host, void* flat,
+                              int64_t nbytes, int64_t flat_bytes, int64_t B,
+                              int N, void* comp, void* meta,
+                              int64_t out_words, void* meta_host,
+                              const void* consts, void* scratch,
+                              int64_t scratch_bytes, void* stream, void* wait,
+                              void* done) {
+  OnDevice on(device);
+  if (on.err != cudaSuccess) return static_cast<int>(on.err);
+  const int64_t need = lz4_rows_scratch_bytes(B, N);
+  if (need < 0) return static_cast<int>(-need);
+  if (need > scratch_bytes || flat_bytes + 12 * B > nbytes ||
+      out_words < 1 + 3 * B + (B + 1) / 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* f = static_cast<uint8_t*>(flat);
+  auto* m = static_cast<int64_t*>(meta);
+  cudaError_t err = cudaMemcpyAsync(flat, host, nbytes,
+                                    cudaMemcpyHostToDevice, s);
+  if (err == cudaSuccess) err = cudaMemsetAsync(meta, 0, out_words * 8, s);
+  if (err == cudaSuccess && wait != nullptr)
+    err = cudaStreamWaitEvent(s, static_cast<cudaEvent_t>(wait), 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rc = lz4_rows_launch(f, f + flat_bytes, f + flat_bytes + 8 * B,
+                                 comp, m, m + 1, m + 1 + 3 * B, m + 1 + B,
+                                 m + 1 + 2 * B, consts, scratch, B, N,
+                                 N + N / 255 + 16, stream);
+  if (rc != 0) return rc;
+  err = cudaMemcpyAsync(meta_host, meta, out_words * 8,
+                        cudaMemcpyDeviceToHost, s);
+  if (err == cudaSuccess)
+    err = cudaEventRecord(static_cast<cudaEvent_t>(done), s);
+  return static_cast<int>(err);
+}
+
+// The round's readback (ops/lz4_torch.py read_lz4): once `done` has
+// completed, the cursor's bytes of `comp` (the bytes the kernel made) into
+// pinned `back` on `stream`, synchronised.  With `block` 0 a round not yet
+// done returns -cudaErrorNotReady at once, copying nothing.  Returns the
+// cursor (nothing copied when it exceeds `cap`, the bytes `back` holds)
+// or a negative cudaError_t.
+extern "C" int64_t lz4_rows_readback(int device, void* done,
+                                     const int64_t* meta_host, int64_t cap,
+                                     const void* comp, void* back,
+                                     void* stream, int block) {
+  OnDevice on(device);
+  if (on.err != cudaSuccess) return -static_cast<int64_t>(on.err);
+  auto ev = static_cast<cudaEvent_t>(done);
+  cudaError_t err = block ? cudaEventSynchronize(ev) : cudaEventQuery(ev);
+  if (err == cudaErrorNotReady) (void)cudaGetLastError();   // not an error
+  if (err != cudaSuccess) return -static_cast<int64_t>(err);
+  const int64_t used = meta_host[0];
+  if (used <= 0 || used > cap) return used;
+  auto s = static_cast<cudaStream_t>(stream);
+  err = cudaMemcpyAsync(back, comp, used, cudaMemcpyDeviceToHost, s);
+  if (err == cudaSuccess) err = cudaStreamSynchronize(s);
+  return err == cudaSuccess ? used : -static_cast<int64_t>(err);
+}

@@ -497,27 +497,45 @@ _CHAIN: dict = {}
 _chain_lock = threading.Lock()
 
 
-def serialized_launch(stream, fire, what: str) -> None:
-    """Enqueue one kernel on ``stream`` with ``fire()`` (returning a
-    cudaError_t), after the card's last launch of this package.
+def chained_launch(stream, fire, done, what: str) -> None:
+    """Enqueue one kernel on ``stream`` after the card's last launch of
+    this package.
 
     The CRC grid is cooperative and its blocks wait on each other's
     tiles, so no other launch of the port may share the card with it: a
     launch on another stream than the card's last one first waits, on
-    the device, for that one's end.  Launches go out one at a time under
-    a lock, which also makes each device's first launch (a kernel's
-    one-time attribute and occupancy setup) happen once."""
-    idx = stream.device.index
-    with _chain_lock, torch.cuda.device(stream.device):
+    the device, for that one's end.  ``fire(wait)`` queues the launch and
+    returns a cudaError_t; ``wait`` is the torch Event of the card's last
+    launch when ``stream`` must wait for it, else None.  ``done`` is the
+    Event that ``fire`` records behind the launch.  Launches go out one at
+    a time under a lock, which also makes each device's first launch (a
+    kernel's one-time attribute and occupancy setup) happen once."""
+    idx = stream.device_index
+    with _chain_lock:
         last = _CHAIN.get(idx)
-        if last is not None and last[0] != stream:
-            stream.wait_event(last[1])
-        err = fire()
+        err = fire(last[1] if last is not None and last[0] != stream
+                   else None)
         if err != 0:
             raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
-        done = torch.cuda.Event()
-        done.record(stream)
         _CHAIN[idx] = (stream, done)
+
+
+def serialized_launch(stream, fire, what: str) -> None:
+    """:func:`chained_launch` of a kernel that ``fire()`` enqueues on
+    ``stream`` (returning a cudaError_t), with torch's wait and event
+    around it."""
+    done = torch.cuda.Event()
+
+    def queue(wait) -> int:
+        if wait is not None:
+            stream.wait_event(wait)
+        err = fire()
+        if err == 0:
+            done.record(stream)
+        return err
+
+    with torch.cuda.device(stream.device):
+        chained_launch(stream, queue, done, what)
 
 
 def launch(staged: tuple, stream=None) -> torch.Tensor:

@@ -245,8 +245,8 @@ class _Lane:
     device) with the same depth discipline; their shards use the real
     lanes' rings and streams."""
 
-    __slots__ = ("dev_id", "device", "bufs", "staging", "inflight",
-                 "launches", "blocks", "jobs", "launch_avg", "rb_stream")
+    __slots__ = ("dev_id", "device", "bufs", "lz4", "staging", "inflight",
+                 "launches", "blocks", "jobs", "launch_avg")
 
     def __init__(self, dev_id: int, device: torch.device, copies: int,
                  launch_avg):
@@ -254,6 +254,8 @@ class _Lane:
         self.device = device            # None: the whole-mesh pseudo-lane
         card = device is not None and device.type == "cuda"
         self.bufs = _crc.LaneBuffers(device) if device is not None else None
+        # the compress rounds' buffers, made on the lane's first round
+        self.lz4 = _lz4.Lz4Lane(self.bufs) if device is not None else None
         self.staging = (_Staging(copies, pin=card) if device is not None
                         else None)
         self.inflight: deque = deque()  # _Launch records, oldest first
@@ -261,9 +263,6 @@ class _Lane:
         self.blocks = 0
         self.jobs = 0
         self.launch_avg = launch_avg    # per-device stage_latency window
-        # a card's second stream, for an lz4 launch's bulk readback: the
-        # lane's own stream may already hold the next launch
-        self.rb_stream = torch.cuda.Stream(device) if card else None
 
 
 class _Governor:
@@ -677,7 +676,12 @@ class AsyncOffloadEngine:
              # thread CPU, counted only while tracing: packing and
              # launching a round, its readback's device wait, and
              # assembling its frames
-             "fill_cpu_ns": 0, "sync_cpu_ns": 0, "frame_cpu_ns": 0})
+             "fill_cpu_ns": 0, "sync_cpu_ns": 0, "frame_cpu_ns": 0,
+             # launched rounds queued by the card's native call (0 on a
+             # CPU lane), and the wall time the governor charges launched
+             # rounds: packing and launching, then readback and frames
+             "native_rounds": 0, "launch_wall_ns": 0,
+             "readback_wall_ns": 0})
         # per-bucket route split {str(bucket): {"device": n, "cpu": n}}
         self._comp_routed = shared_dict("engine.compress_routed",
                                         relaxed=True)
@@ -836,6 +840,7 @@ class AsyncOffloadEngine:
         if self._warmup_thread is None or not self._warmup_thread.is_alive():
             for ln in self._lanes:
                 ln.staging.clear()
+                ln.lz4.rounds.clear()
 
     def warm_wait(self, timeout: float = 120.0, device: int = 0) -> bool:
         """Block until lane ``device``'s kernel is warm (one kernel
@@ -1705,15 +1710,18 @@ class AsyncOffloadEngine:
             plan = _lz4.plan_lz4(lens[a:b])
             slot = lane.staging.take(plan.nbytes)
             try:
-                _lz4.fill_lz4(slot, plan, rec.raw[a:b])
-                handle = _lz4.launch_lz4(slot, plan, lane.bufs)
+                _lz4.pack_lz4(slot, plan, rec.raw[a:b])
+                done = _lz4.launch_lz4(slot, plan, lane.lz4)
             except BaseException:
                 lane.staging.give_back([slot] + [c[0] for c in rec.chunks])
                 raise
-            rec.chunks.append((slot, plan, handle))
+            rec.chunks.append((slot, plan, done))
         rec.host_s = time.perf_counter() - t_launch
         if tr0:
             self.compress_stats["fill_cpu_ns"] += time.thread_time_ns() - c0
+        self.compress_stats["launch_wall_ns"] += int(rec.host_s * 1e9)
+        if lane.bufs.stream is not None:
+            self.compress_stats["native_rounds"] += 1
         for j in group:
             self.governor.note_qos(j.topics, shed=False)
         if tr0:
@@ -1771,43 +1779,49 @@ class AsyncOffloadEngine:
         t_rb = time.perf_counter()
         tr0 = _trace.now() if _trace.enabled else 0
         c0 = time.thread_time_ns() if tr0 else 0
+        lz4_lane = rec.lane.lz4
         try:
-            parts = [_lz4.read_lz4(slot, plan, handle, rec.lane.rb_stream)
-                     for slot, plan, handle in rec.chunks]
+            # a CPU lane's launch gave its results; the frames below read
+            # a card's out of the slots, given back after them
+            parts = [done if done is not None
+                     else _lz4.read_lz4(slot, plan, lz4_lane)
+                     for slot, plan, done in rec.chunks]
+            if tr0:
+                self.compress_stats["sync_cpu_ns"] += (time.thread_time_ns()
+                                                       - c0)
+            if rec.t0 is not None:
+                dt = time.perf_counter() - rec.t0
+                rec.lane.launch_avg.add(dt * 1e6)
+                self.stage_launch.add(dt * 1e6)
+            t_reap = time.perf_counter()
+            self.compress_stats["fused_crc"] += 1
+            c0 = time.thread_time_ns() if tr0 else 0
+            frames, nblocks = [], 0
+            for (_, plan, _), (packed, offs, olen, cc, cr) in zip(rec.chunks,
+                                                                parts):
+                mv = memoryview(packed)
+                for first, nb in plan.spans:
+                    buf = memoryview(rec.raw[len(frames)])
+                    bodies = []
+                    for k in range(nb):
+                        i = first + k
+                        o = int(offs[i])
+                        raw = buf[k * LZ4F_BLOCKSIZE:(k + 1) * LZ4F_BLOCKSIZE]
+                        bodies.append((mv[o:o + int(olen[i])].tobytes(),
+                                       int(cc[i]), raw, int(cr[i])))
+                    frames.append(lz4f_frame(bodies))
+                nblocks += plan.B
         finally:
             rec.lane.staging.give_back([c[0] for c in rec.chunks])
-        if tr0:
-            self.compress_stats["sync_cpu_ns"] += time.thread_time_ns() - c0
-        if rec.t0 is not None:
-            dt = time.perf_counter() - rec.t0
-            rec.lane.launch_avg.add(dt * 1e6)
-            self.stage_launch.add(dt * 1e6)
-        t_reap = time.perf_counter()
-        self.compress_stats["fused_crc"] += 1
-        c0 = time.thread_time_ns() if tr0 else 0
-        frames, nblocks = [], 0
-        for (_, plan, _), (packed, offs, olen, cc, cr) in zip(rec.chunks,
-                                                            parts):
-            mv = memoryview(packed)
-            for first, nb in plan.spans:
-                buf = memoryview(rec.raw[len(frames)])
-                bodies = []
-                for k in range(nb):
-                    i = first + k
-                    o = int(offs[i])
-                    raw = buf[k * LZ4F_BLOCKSIZE:(k + 1) * LZ4F_BLOCKSIZE]
-                    bodies.append((mv[o:o + int(olen[i])].tobytes(),
-                                   int(cc[i]), raw, int(cr[i])))
-                frames.append(lz4f_frame(bodies))
-            nblocks += plan.B
         if tr0:
             self.compress_stats["frame_cpu_ns"] += time.thread_time_ns() - c0
         nbytes = sum(len(f) for f in frames)
         self.compress_stats["bytes_out"] += nbytes
+        rb_s = time.perf_counter() - t_rb
+        self.compress_stats["readback_wall_ns"] += int(rb_s * 1e9)
         if rec.t0 is not None:
             self.governor.note_device_compress(
-                rec.bucket, rec.host_s + time.perf_counter() - t_rb,
-                rec.lane.dev_id)
+                rec.bucket, rec.host_s + rb_s, rec.lane.dev_id)
         pos = 0
         for j in rec.jobs:
             j.ticket._complete(frames[pos:pos + len(j.lens)])

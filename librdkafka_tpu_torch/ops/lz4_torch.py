@@ -24,7 +24,8 @@ PyTorch version (a transcription of the JAX formulation: sort for the
 equal-hash predecessor, blocked match extension, pointer-doubling parse,
 searchsorted emission).  The engine's form (``plan_lz4`` … ``read_lz4``)
 packs the blocks with no padding into a pinned slot and reads back only
-the compressed bytes the kernel made.
+the compressed bytes the kernel made, in native calls (one to pack, one
+to launch, one to read back).
 
 ``launches`` counts kernel launches, ``h2d_bytes`` / ``d2h_bytes`` the
 bytes the routes copied to and from the card.
@@ -486,15 +487,24 @@ def parse_sequences(block: bytes) -> list[tuple[int, int, int]]:
 # -------------------------------------------------------- CUDA kernel --
 
 def _bind(so: str) -> ctypes.CDLL:
+    """The kernel's library; its attribute ``held`` is the same library
+    called with the GIL held (ctypes.PyDLL), for the engine's round."""
     L = ctypes.CDLL(so)
-    vp = ctypes.c_void_p
-    L.lz4_rows_launch.argtypes = [vp] * 11 + [
-        ctypes.c_int64, ctypes.c_int, ctypes.c_int, vp]
-    L.lz4_rows_launch.restype = ctypes.c_int
-    L.lz4_rows_ctas_per_sm.argtypes = [ctypes.c_int]
-    L.lz4_rows_ctas_per_sm.restype = ctypes.c_int
-    L.lz4_rows_scratch_bytes.argtypes = [ctypes.c_int64, ctypes.c_int]
-    L.lz4_rows_scratch_bytes.restype = ctypes.c_int64
+    H = ctypes.PyDLL(so)
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    L.lz4_rows_launch.argtypes = [vp] * 11 + [i64, i32, i32, vp]
+    L.lz4_rows_launch.restype = i32
+    L.lz4_rows_ctas_per_sm.argtypes = [i32]
+    L.lz4_rows_ctas_per_sm.restype = i32
+    L.lz4_rows_scratch_bytes.argtypes = [i64, i32]
+    L.lz4_rows_scratch_bytes.restype = i64
+    H.lz4_rows_round.argtypes = [i32, vp, vp, i64, i64, i64, i32, vp, vp,
+                                 i64, vp, vp, vp, i64, vp, vp, vp]
+    H.lz4_rows_round.restype = i32
+    for lib in (L, H):
+        lib.lz4_rows_readback.argtypes = [i32, vp, vp, i64, vp, vp, vp, i32]
+        lib.lz4_rows_readback.restype = i64
+    L.held = H
     return L
 
 
@@ -520,37 +530,16 @@ def ctas_per_sm(N: int = LZ4F_BLOCKSIZE, device=None) -> int:
     return k
 
 
-def _fire(stream, data_ptr, row_offs_ptr, lens_ptr, comp_ptr, cursor_ptr,
-          offs_ptr, olen_ptr, cc_ptr, cr_ptr, B: int, N: int,
-          lib=None) -> None:
-    """One kernel launch on ``stream``, serialized with the card's other
-    launches of the port (crc32c_torch.serialized_launch: the CRC grid is
-    cooperative and must not share the card).  The launch's scratch (the
-    candidates' distances and the sequence tables, one slice per CTA of
-    the persistent grid) is allocated on ``stream`` and given back to the
-    caching allocator after the launch is queued: stream order keeps it
-    the kernel's until the kernel ends.  ``lib``: another build of the
-    kernel (the stage clocks'), whose launches are not counted."""
-    counted = lib is None
-    lib = lib or _kernel_lib()
-    consts = _crc._device_consts(stream.device).data_ptr()
-    with torch.cuda.device(stream.device):
-        nbytes = lib.lz4_rows_scratch_bytes(B, N)
-    if nbytes < 0:
-        raise RuntimeError(f"lz4_rows_scratch_bytes: cudaError {-nbytes}")
-    with torch.cuda.stream(stream):
-        scratch = torch.empty((nbytes,), dtype=torch.uint8,
-                              device=stream.device)
-    _crc.serialized_launch(
-        stream, lambda: lib.lz4_rows_launch(
-            data_ptr, row_offs_ptr, lens_ptr, comp_ptr, cursor_ptr, offs_ptr,
-            olen_ptr, cc_ptr, cr_ptr, consts, scratch.data_ptr(), B, N,
-            _bound(N), stream.cuda_stream), "lz4_rows")
-    if counted:
-        _count(launched=1)
-
-
 def _launch_rows(data, lens, with_crc: str, lib=None):
+    """One kernel launch on the padded rows, on torch's current stream,
+    serialized with the card's other launches of the port
+    (crc32c_torch.serialized_launch: the CRC grid is cooperative and must
+    not share the card).  The launch's scratch (the candidates' distances
+    and the sequence tables, one slice per CTA of the persistent grid) is
+    allocated on the stream and given back to the caching allocator after
+    the launch is queued: stream order keeps it the kernel's until the
+    kernel ends.  ``lib``: another build of the kernel (the stage
+    clocks'), whose launches are not counted."""
     B, N = data.shape
     data, lens = data.contiguous(), lens.contiguous()
     dev = data.device
@@ -562,11 +551,26 @@ def _launch_rows(data, lens, with_crc: str, lib=None):
           if with_crc == "both" else None)
     cr = (torch.empty((B,), dtype=torch.int64, device=dev)
           if with_crc != "none" else None)
-    if B:
-        _fire(torch.cuda.current_stream(dev), data.data_ptr(), None,
-              lens.data_ptr(), comp.data_ptr(), None, None, olen.data_ptr(),
-              None if cc is None else cc.data_ptr(),
-              None if cr is None else cr.data_ptr(), B, N, lib)
+    if not B:
+        return comp, olen, cc, cr
+    counted = lib is None
+    lib = lib or _kernel_lib()
+    stream = torch.cuda.current_stream(dev)
+    consts = _crc._device_consts(stream.device).data_ptr()
+    with torch.cuda.device(stream.device):
+        nbytes = lib.lz4_rows_scratch_bytes(B, N)
+    if nbytes < 0:
+        raise RuntimeError(f"lz4_rows_scratch_bytes: cudaError {-nbytes}")
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
+    _crc.serialized_launch(
+        stream, lambda: lib.lz4_rows_launch(
+            data.data_ptr(), None, lens.data_ptr(), comp.data_ptr(), None,
+            None, olen.data_ptr(), ptr(cc), ptr(cr), consts,
+            scratch.data_ptr(), B, N, _bound(N), stream.cuda_stream),
+        "lz4_rows")
+    if counted:
+        _count(launched=1)
     return comp, olen, cc, cr
 
 
@@ -652,165 +656,265 @@ def lz4_block_compress_many(blocks: list[bytes], device=None) -> list[bytes]:
 
 # ------------------------------------------------------ engine staging --
 # The engine's form of the route (ops/engine.py's compress route): a
-# launch's blocks are filled back to back (each 16-byte aligned) into a
-# pinned slot of the lane's rings, cross in ONE non-blocking copy on the
-# lane's stream, are compressed by one launch with the CRC epilogue
-# ("both") into a packed output claimed by an atomic cursor, and the
-# launch's metadata (cursor, offsets, CRCs, lengths) comes back with one
-# non-blocking copy into the slot.  The readback waits for that copy, then
-# copies only the cursor's bytes.
+# round's blocks are packed back to back (each buffer 16-byte aligned)
+# with their metadata into a pinned slot of the lane's rings by one native
+# call (lz4_pack.cpp tk_lz4_pack_round), and one more (lz4_rows_round) queues
+# on the lane's stream the slot's H2D copy, the chain's wait, one launch
+# with the CRC epilogue ("both") into a packed output claimed by an atomic
+# cursor, and the D2H copy of the round's metadata (cursor, offsets, CRCs,
+# lengths) into the slot.  The readback (lz4_rows_readback) waits for
+# that copy, then copies only the cursor's bytes into pinned memory.  The
+# device and pinned buffers are reused, the lane's and each slot's
+# (Lz4Lane).
+#
+# The calls hold the GIL, except a blocking readback and the pack of a
+# large round: beside a thread that runs Python, a thread that gives the
+# GIL up waits up to the interpreter's switch interval (5 ms) to take it
+# back, far longer than the pack of a small round or the launch takes.
+
+#: rounds of more bytes give the GIL up while they are packed, so that the
+#: client's other threads run meanwhile.  Beside a busy thread this costs
+#: the pack about 5 ms of wall on an H100's host up to 16 MiB and nothing
+#: from 32 MiB (a longer held call is made to hand the GIL over anyway);
+#: in the devlz4 benchmark cell the client's CPU a record read a lower
+#: median with this cut than with every pack holding the GIL or with a
+#: 16 MiB cut (18.52, 19.17 and 19.21 us; 7, 7 and 3 runs).
+PACK_RELEASE_BYTES = 4 << 20
+_NOT_READY = -600               # -cudaErrorNotReady: the round is running
+
+_pack_fns = None
+
 
 class Lz4Plan:
     """One launch of the engine's compress route, planned by
     :func:`plan_lz4` from the lengths of the job buffers it carries."""
 
-    __slots__ = ("B", "N", "lens", "row_offs", "buf_offs", "spans",
-                 "flat_bytes", "nbytes", "cap", "meta", "out_words")
+    __slots__ = ("B", "N", "buf_lens", "lens", "row_offs", "spans",
+                 "flat_bytes", "nbytes", "cap", "out_words")
 
 
 def plan_lz4(buf_lens) -> Lz4Plan:
     """Cut buffers of ``buf_lens`` bytes into LZ4F blocks of 64 KB (an
     empty buffer has none) and lay them back to back: each buffer starts
     16-byte aligned, so its full blocks are contiguous and aligned.
-    ``spans`` gives (first block, block count) per buffer."""
+    ``spans`` gives (first block, block count) per buffer; ``row_offs``
+    and ``lens`` each block's offset in the slot and its length.  Plain
+    Python over the buffers: beside busy threads, a call into NumPy or
+    torch may cost the GIL (see above)."""
     block = LZ4F_BLOCKSIZE
-    buf_lens = np.asarray(buf_lens, dtype=np.int64)
-    counts = -(-buf_lens // block)
-    spans = list(zip((np.cumsum(counts) - counts).tolist(), counts.tolist()))
-    padded = (buf_lens + 15) & ~15
-    buf_offs = np.cumsum(padded) - padded
-    lens = np.concatenate([np.minimum(block, n - np.arange(0, n, block))
-                           for n in buf_lens.tolist() if n]
-                          or [np.zeros(0, np.int64)]).astype(np.int64)
-    within = np.concatenate([np.arange(0, n, block)
-                             for n in buf_lens.tolist() if n]
-                            or [np.zeros(0, np.int64)]).astype(np.int64)
-    owner = np.repeat(np.arange(len(buf_lens)), counts)
     plan = Lz4Plan()
+    plan.buf_lens = [int(n) for n in buf_lens]
+    spans, row_offs, lens = [], [], []
+    flat = cap = 0
+    for n in plan.buf_lens:
+        spans.append((len(lens), -(-n // block)))
+        for o in range(0, n, block):
+            ln = min(block, n - o)
+            row_offs.append(flat + o)
+            lens.append(ln)
+            cap += ln + 16 + ln // 255
+        flat += (n + 15) & ~15
     plan.B = B = len(lens)
-    plan.N = max(16, int((lens.max() + 15) & ~15)) if B else 16
-    plan.lens = lens.astype(np.int32)
-    plan.row_offs = buf_offs[owner] + within
-    plan.buf_offs = buf_offs
-    plan.spans = spans
-    plan.flat_bytes = int(padded.sum())
-    meta = np.concatenate([plan.row_offs.view(np.uint8),
-                           np.concatenate([plan.lens, np.zeros(B % 2, np.int32)])
-                           .view(np.uint8)])
-    plan.meta = meta
-    plan.nbytes = plan.flat_bytes + meta.nbytes
-    plan.cap = max(16, int(lens.sum() + lens.size * 16 + (lens // 255).sum()))
+    plan.N = max(16, (max(lens) + 15) & ~15) if B else 16
+    plan.lens, plan.row_offs, plan.spans = lens, row_offs, spans
+    plan.flat_bytes = flat
+    # then B int64 row offsets and B int32 lengths, padded to 8 bytes
+    plan.nbytes = flat + 8 * B + 4 * (B + B % 2)
+    plan.cap = max(16, cap)
     # cursor, offsets, crc_comp, crc_raw (int64 each), olen (int32 pairs)
     plan.out_words = 1 + 3 * B + -(-B // 2)
     return plan
 
 
-def fill_lz4(slot: "_crc.Slot", plan: Lz4Plan, bufs) -> None:
-    """Write the planned buffers into ``slot`` (after the slot's last
-    launch no longer reads it), then the metadata.
+def _packers():
+    """tk_lz4_pack_round of the port's native codec library, bound twice:
+    (called with the GIL held, called with it released)."""
+    global _pack_fns
+    if _pack_fns is None:
+        from .native.build import build
+        so = build()
+        fns = []
+        for L in (ctypes.PyDLL(so), ctypes.CDLL(so)):
+            fn = L.tk_lz4_pack_round
+            fn.argtypes = [ctypes.POINTER(ctypes.c_char_p),
+                           ctypes.POINTER(ctypes.c_int64), ctypes.c_int,
+                           ctypes.c_void_p, ctypes.c_int64]
+            fn.restype = ctypes.c_int64
+            fns.append(fn)
+        _pack_fns = tuple(fns)
+    return _pack_fns
 
-    The buffers, zeros up to each one's 16-byte padding and the metadata
-    are joined first and then copied in one piece: NumPy gives up the GIL
-    for a large copy, and a thread that gives it up once per buffer waits
-    to take it back once per buffer, behind the client's other Python
-    threads (64 buffers of 55 KB took 109 ms so on an H100's host beside
-    one thread that kept the GIL busy, against 0.43 ms alone)."""
+
+def pack_lz4(slot: "_crc.Slot", plan: Lz4Plan, bufs) -> None:
+    """Write the planned buffers (bytes) into ``slot``, each from its
+    16-byte aligned offset with zeros after it, then the metadata, in one
+    native call (after the slot's last launch no longer reads it)."""
     if plan.nbytes > slot.cap:
         raise ValueError(f"launch of {plan.nbytes} B over its slot's "
                          f"{slot.cap}")
-    parts = []
-    for b in bufs:
-        parts.append(b)
-        parts.append(bytes(-len(b) & 15))
-    parts.append(plan.meta.tobytes())
-    joined = b"".join(parts)
+    if len(bufs) != len(plan.buf_lens):
+        raise ValueError(f"{len(bufs)} buffers for a plan of "
+                         f"{len(plan.buf_lens)}")
+    for b, n in zip(bufs, plan.buf_lens):
+        if len(b) != n:
+            raise ValueError(f"a buffer of {len(b)} B planned as {n}")
+    bufs = [b if type(b) is bytes else bytes(b) for b in bufs]
+    held, released = _packers()
+    pack = released if plan.nbytes > PACK_RELEASE_BYTES else held
     slot.wait()
-    slot.host.numpy()[:plan.nbytes] = np.frombuffer(joined, dtype=np.uint8)
-    if slot.out.numel() < plan.out_words:
-        slot.out = torch.empty((_crc._pow2(plan.out_words, 1024),),
-                               dtype=torch.int64, pin_memory=slot.pin)
+    n = len(bufs)
+    got = pack((ctypes.c_char_p * n)(*bufs),
+               (ctypes.c_int64 * n)(*plan.buf_lens), n,
+               slot.host.data_ptr(), slot.cap)
+    if got != plan.nbytes:
+        raise RuntimeError(f"tk_lz4_pack_round wrote {got} B, the plan "
+                           f"{plan.nbytes}")
 
 
-class Lz4Launch:
-    """What an engine launch keeps until its readback: on a card the
-    device output and metadata (allocated on the lane's stream, one pair
-    per launch in flight); on a CPU lane the plain version's results."""
+class Lz4Lane:
+    """A lane's compress rounds: the lane's ``bufs``
+    (crc32c_torch.LaneBuffers: its stream, and the ``flat`` and ``out``
+    its rounds share with its CRC launches) and, made on a card's first
+    round, what only the rounds reuse: the kernel's ``scratch`` (sized
+    once, for its widest launch), ``rb_stream`` for the bulk readback (the
+    lane's own stream may already hold the next launch), and the device
+    and pinned buffers of each staging slot a round has used
+    (``rounds``)."""
 
-    __slots__ = ("comp", "meta", "result")
+    __slots__ = ("bufs", "scratch", "rb_stream", "rounds")
 
-    def __init__(self, comp=None, meta=None, result=None):
-        self.comp = comp
-        self.meta = meta
-        self.result = result
+    def __init__(self, bufs: "_crc.LaneBuffers"):
+        self.bufs = bufs
+        self.scratch = self.rb_stream = None
+        self.rounds: dict = {}      # staging slot -> _Round
 
 
-def launch_lz4(slot: "_crc.Slot", plan: Lz4Plan,
-               lane: "_crc.LaneBuffers") -> Lz4Launch:
-    """Queue the slot's H2D copy, the kernel ("both") and the D2H copy of
-    the metadata on the lane's stream, then mark the slot's event.  A CPU
-    lane runs :func:`lz4_rows` on rows rebuilt from the slot (the plain
-    version)."""
+class _Round:
+    """A staging slot's compress round on a card: the kernel's packed
+    output ``comp``, the pinned ``back`` its bytes come back into, and
+    ``done``, the event the round's native call records."""
+
+    __slots__ = ("comp", "back", "done")
+
+    def __init__(self, stream):
+        self.comp = self.back = None
+        # recorded once so that the CUDA event exists: the round's native
+        # call records it again
+        self.done = torch.cuda.Event()
+        self.done.record(stream)
+
+
+def _grow(t, n: int, **kw):
+    """``t``, or a new tensor of at least ``n`` elements when it is
+    smaller (None: none yet)."""
+    if t is not None and t.numel() >= n:
+        return t
+    return torch.empty((_crc._pow2(n, 1024),), **kw)
+
+
+def _reserve(slot: "_crc.Slot", plan: Lz4Plan, lane: Lz4Lane) -> _Round:
+    """Grow the device and pinned buffers a round in ``slot`` on ``lane``
+    reuses: torch calls, made only when a round outgrows them."""
+    bufs = lane.bufs
+    dev = bufs.device
+    if (bufs.flat is None or bufs.flat.numel() < plan.nbytes
+            or bufs.out is None or bufs.out.numel() < plan.out_words):
+        with torch.cuda.stream(bufs.stream):
+            bufs.reserve(plan.nbytes, 0, plan.out_words)
+    if lane.scratch is None:
+        lib = _kernel_lib()
+        with torch.cuda.device(dev):
+            nbytes = lib.lz4_rows_scratch_bytes(1 << 40, LZ4F_BLOCKSIZE)
+        if nbytes < 0:
+            raise RuntimeError(f"lz4_rows_scratch_bytes: cudaError {-nbytes}")
+        with torch.cuda.stream(bufs.stream):
+            lane.scratch = torch.empty((nbytes,), dtype=torch.uint8,
+                                       device=dev)
+        lane.rb_stream = torch.cuda.Stream(dev)
+    rnd = lane.rounds.get(slot)
+    if rnd is None:
+        rnd = lane.rounds[slot] = _Round(bufs.stream)
+    if rnd.comp is None or rnd.comp.numel() < plan.cap + 16:
+        # 16 bytes of slack: the CRC epilogue reads whole 16-byte chunks
+        with torch.cuda.stream(bufs.stream):
+            rnd.comp = _grow(rnd.comp, plan.cap + 16, dtype=torch.uint8,
+                             device=dev)
+    rnd.back = _grow(rnd.back, plan.cap, dtype=torch.uint8, pin_memory=True)
+    slot.out = _grow(slot.out, plan.out_words, dtype=torch.int64,
+                     pin_memory=True)
+    return rnd
+
+
+def launch_lz4(slot: "_crc.Slot", plan: Lz4Plan, lane: Lz4Lane):
+    """Queue the round packed in ``slot`` on ``lane``: on a card one
+    native call (lz4_rows_round) makes the H2D copy, the chain's wait
+    (crc32c_torch.chained_launch), the kernel ("both") and the D2H copy of
+    the metadata into ``slot.out``, and records the round's event; returns
+    None (:func:`read_lz4` reads it back).  A CPU lane runs
+    :func:`lz4_rows` on rows rebuilt from the slot (the plain version) and
+    returns read_lz4's tuple."""
     B = plan.B
-    if lane.stream is None:
+    bufs = lane.bufs
+    if bufs.stream is None:
         flat = slot.host[:plan.flat_bytes]
         data = torch.zeros((B, plan.N), dtype=torch.uint8)
-        for r, (o, n) in enumerate(zip(plan.row_offs.tolist(),
-                                       plan.lens.tolist())):
+        for r, (o, n) in enumerate(zip(plan.row_offs, plan.lens)):
             data[r, :n] = flat[o:o + n]
-        comp, olen, cc, cr = lz4_rows(data, torch.from_numpy(plan.lens),
-                                      "both")
+        comp, olen, cc, cr = lz4_rows(
+            data, torch.tensor(plan.lens, dtype=torch.int32), "both")
         olen = olen.numpy()
         offs = np.cumsum(olen.astype(np.int64)) - olen
         packed = np.concatenate([comp[r, :olen[r]].numpy()
                                  for r in range(B)] or [np.zeros(0, np.uint8)])
-        return Lz4Launch(result=(packed, offs, olen,
-                                 cc.numpy().astype(np.uint32),
-                                 cr.numpy().astype(np.uint32)))
-    dev = lane.device
-    with torch.cuda.stream(lane.stream):
-        lane.reserve(plan.nbytes, 0, 0)
-        lane.flat[:plan.nbytes].copy_(slot.host[:plan.nbytes],
-                                      non_blocking=True)
-        comp = torch.empty((plan.cap + 16,), dtype=torch.uint8, device=dev)
-        meta = torch.zeros((plan.out_words,), dtype=torch.int64, device=dev)
-    _count(h2d=plan.nbytes)
-    base = lane.flat.data_ptr()
-    at = meta.data_ptr()
-    _fire(lane.stream, base, base + plan.flat_bytes,
-          base + plan.flat_bytes + 8 * B, comp.data_ptr(), at, at + 8,
-          at + 8 * (1 + 3 * B), at + 8 * (1 + B), at + 8 * (1 + 2 * B), B,
-          plan.N)
-    with torch.cuda.stream(lane.stream):
-        slot.out[:plan.out_words].copy_(meta, non_blocking=True)
-        slot.event = torch.cuda.Event()
-        slot.event.record(lane.stream)
-    return Lz4Launch(comp=comp, meta=meta)
+        return (packed, offs, olen, cc.numpy().astype(np.uint32),
+                cr.numpy().astype(np.uint32))
+    rnd = _reserve(slot, plan, lane)
+    lib = _kernel_lib()
+    stream = bufs.stream
+    args = (stream.device_index, slot.host.data_ptr(), bufs.flat.data_ptr(),
+            plan.nbytes, plan.flat_bytes, B, plan.N, rnd.comp.data_ptr(),
+            bufs.out.data_ptr(), plan.out_words, slot.out.data_ptr(),
+            _crc._device_consts(bufs.device).data_ptr(),
+            lane.scratch.data_ptr(), lane.scratch.numel(), stream.cuda_stream)
+    _crc.chained_launch(
+        stream, lambda wait: lib.held.lz4_rows_round(
+            *args, 0 if wait is None else wait.cuda_event,
+            rnd.done.cuda_event), rnd.done, "lz4_rows")
+    slot.event = rnd.done
+    _count(launched=1, h2d=plan.nbytes)
+    return None
 
 
-def read_lz4(slot: "_crc.Slot", plan: Lz4Plan, handle: Lz4Launch,
-             stream=None):
-    """The launch's results once its metadata has landed: (packed bytes
+def read_lz4(slot: "_crc.Slot", plan: Lz4Plan, lane: Lz4Lane):
+    """A card round's results once its metadata has landed: (packed bytes
     (uint8 array), offsets (B,), olen (B,), crc_comp (B,) uint32, crc_raw
-    (B,) uint32).  On a card only the cursor's bytes are copied back, on
-    ``stream`` (the lane's readback stream: the lane's own may already
-    hold the next launch)."""
-    if handle.result is not None:
-        return handle.result
-    slot.wait()
-    B = plan.B
-    m = slot.out[:plan.out_words].numpy().copy()
-    used = int(m[0])
+    (B,) uint32), views of pinned buffers valid until the slot's next
+    launch.  One native call (lz4_rows_readback) waits for the round and
+    copies only the cursor's bytes back, on the lane's readback stream; it
+    holds the GIL when the round is done already, and a round still
+    running is waited for in a second call that gives the GIL up."""
+    lib = _kernel_lib()
+    rnd = lane.rounds[slot]
+    rb = lane.rb_stream
+    args = (rb.device_index, rnd.done.cuda_event, slot.out.data_ptr(),
+            plan.cap, rnd.comp.data_ptr(), rnd.back.data_ptr(),
+            rb.cuda_stream)
+    used = lib.held.lz4_rows_readback(*args, 0)
+    if used == _NOT_READY:
+        used = lib.lz4_rows_readback(*args, 1)
+    if used < 0:
+        raise RuntimeError(f"lz4_rows_readback: cudaError {-used}")
+    slot.event = None
     if used > plan.cap:
         raise RuntimeError(f"lz4 launch wrote {used} B past its {plan.cap}")
+    B = plan.B
+    m = slot.out.numpy()[:plan.out_words]
     offs = m[1:1 + B]
     cc = m[1 + B:1 + 2 * B].astype(np.uint32)
     cr = m[1 + 2 * B:1 + 3 * B].astype(np.uint32)
     olen = m[1 + 3 * B:].view(np.int32)[:B]
-    with torch.cuda.stream(stream or torch.cuda.current_stream(
-            handle.comp.device)):
-        packed = handle.comp[:used].cpu().numpy()
     _count(d2h=plan.out_words * 8 + used)
-    return packed, offs, olen, cc, cr
+    return rnd.back.numpy()[:used], offs, olen, cc, cr
 
 
 # ------------------------------------------------------ warm registry --

@@ -1,7 +1,8 @@
 """Build the native libraries (g++ → .so), cached by mtime.
 
 The port's copy of librdkafka_tpu/ops/native/build.py.  Two artifacts:
-  _codec.so           — plain shared library reached via ctypes (codec.cpp)
+  _codec.so           — plain shared library reached via ctypes (codec.cpp,
+                        then lz4_pack.cpp, the device lz4 route's staging)
   tk_torch_enqlane.so — CPython extension module (enqlane.cpp with
                         codec.cpp linked in; ctypes call overhead would
                         eat the enqueue lane's win).  Its module name is
@@ -18,6 +19,7 @@ import threading
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(_DIR, "codec.cpp")
+PACK_SRC = os.path.join(_DIR, "lz4_pack.cpp")
 SO = os.path.join(_DIR, "_codec.so")
 ENQ_NAME = "tk_torch_enqlane"
 ENQ_SRC = os.path.join(_DIR, "enqlane.cpp")
@@ -67,14 +69,15 @@ def _loadable(so: str) -> bool:
 
 
 def build(force: bool = False) -> str:
-    """Compile codec.cpp to a shared library if stale; returns the .so path."""
+    """Compile codec.cpp and lz4_pack.cpp to a shared library if stale;
+    returns the .so path."""
     with _lock:
         if force and os.path.exists(SO):
             os.remove(SO)
-        so = _compile(SRC, SO, ["-fvisibility=hidden"])
+        so = _compile([SRC, PACK_SRC], SO, ["-fvisibility=hidden"])
         if not _loadable(so):
             os.remove(so)               # wrong-platform prebuilt: rebuild
-            so = _compile(SRC, SO, ["-fvisibility=hidden"])
+            so = _compile([SRC, PACK_SRC], SO, ["-fvisibility=hidden"])
         return so
 
 

@@ -265,6 +265,23 @@ def test_compress_route_cpu_counts_while_tracing(traced):
     assert stats["turn_cpu_ns"] >= sum(comp[k] for k in COMPRESS_CPU)
 
 
+def test_compress_route_wall_counts_untraced():
+    """The wall time the governor charges a launched round (packing and
+    launch, then readback and frames) counts with tracing off; a CPU
+    lane's round takes no native launch, and the CPU counters stay 0."""
+    assert not trace.enabled
+    eng = _compress_engine(1)
+    bufs = [b"wall-%04d " % i * 90 for i in range(3)]
+    try:
+        eng.submit_compress(bufs, window=False).result(300)
+        comp = dict(eng.compress_stats)
+    finally:
+        eng.close()
+    assert comp["launches"] == 1 and comp["native_rounds"] == 0, comp
+    assert comp["launch_wall_ns"] > 0 and comp["readback_wall_ns"] > 0, comp
+    assert all(comp[k] == 0 for k in COMPRESS_CPU), comp
+
+
 def test_compress_route_counts_cpu_bytes_below_quorum():
     """A round below the launch quorum is the CPU encoder's: its input
     bytes count in ``cpu_bytes_in`` whether or not tracing is on, and

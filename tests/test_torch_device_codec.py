@@ -128,6 +128,30 @@ def test_engine_device_frames_bitexact_sweep():
         _close(j, p)
 
 
+def test_engine_two_chunk_round_frames_bitexact(monkeypatch):
+    """A round cut into two launches (a launch's bytes capped low): each
+    chunk packed natively into a slot of its own, frames == the
+    deterministic encoder's, one round counted, none native on a CPU
+    lane, its wall time charged."""
+    from librdkafka_tpu_torch.ops import crc32c_torch
+    monkeypatch.setattr(crc32c_torch, "LAUNCH_BYTES", 100_000)
+    rng = np.random.default_rng(2)
+    bufs = [CORPORA["over_64k"][:70_000], b"kv-pair " * 6000,
+            rng.integers(0, 256, 3000, dtype=np.uint8).tobytes(), b"Z"]
+    assert len(AsyncOffloadEngine._chunks(
+        np.array([len(b) for b in bufs], np.int64))) == 2
+    _, p = _engines()
+    try:
+        got = p.submit_compress(bufs, window=False).result(300)
+        assert [bytes(f) for f in got] == _det(bufs)
+        comp = dict(p.compress_stats)
+    finally:
+        _close(_, p)
+    assert comp["launches"] == 1 and comp["fused_crc"] == 1, comp
+    assert comp["native_rounds"] == 0, comp
+    assert comp["launch_wall_ns"] > 0 and comp["readback_wall_ns"] > 0, comp
+
+
 def test_engine_compress_below_quorum_serves_cpu_bitexact():
     j, p = _engines(min_batches=4)
     try:

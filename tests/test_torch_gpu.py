@@ -8,7 +8,8 @@ flight, first launches from two threads), and the LZ4 kernel
 (csrc/lz4_rows.cu) against its plain version and the native encoder in
 every ``with_crc`` mode (with the edge rows of its stages), its two CTAs
 an SM and its stage clocks, beside a CRC launch on another stream, and
-through the engine's compress route, the sharded steps (kernels G
+through the engine's compress route (a round's wall time beside a
+thread that keeps the GIL busy among them), the sharded steps (kernels G
 and H of parallel/mesh.py) on four shards of the visible cards, through
 the engine and the entry points, the robustness tier (the QoS flood
 scenario and the stress gate) with its device legs on the card, the
@@ -376,6 +377,49 @@ def test_lz4_and_crc_launches_on_two_streams_do_not_wedge(card):
         assert out[("crc", k)].tolist() == [native.crc32c(b) for b in bufs]
 
 
+def test_engine_rounds_beside_crc_launches_on_card(card):
+    """The engine's native compress rounds (their chain wait and event
+    recorded inside one native call) while another thread launches the
+    cooperative CRC kernel on its own stream: nothing wedges, frames ==
+    the deterministic encoder's, CRCs exact."""
+    import threading
+    from librdkafka_tpu_torch.ops import lz4_torch
+    rng = np.random.default_rng(24)
+    bufs = [(b"%05d-" % i) * 3000 + rng.integers(
+        0, 256, 500 * (i % 5), dtype=np.uint8).tobytes() for i in range(32)]
+    det = native.lz4f_compress_many(bufs, deterministic=True)
+    want = [native.crc32c(b) for b in bufs]
+    prov = GpuCodecProvider(min_batches=1, governor=False,
+                            compress_device=True)
+    errs, crcs = [], []
+
+    def crc_side():
+        try:
+            s = torch.cuda.Stream(card)
+            with torch.cuda.stream(s):
+                for _ in range(24):
+                    crcs.append(crc.crc32c_many(bufs).tolist())
+        except Exception as e:          # reported below
+            errs.append(e)
+
+    try:
+        assert prov.wait_warm(300)
+        eng = prov._get_engine()
+        l0 = lz4_torch.launches
+        th = threading.Thread(target=crc_side)
+        th.start()
+        frames = [eng.submit_compress(bufs, window=False) for _ in range(8)]
+        got = [[bytes(f) for f in t.result(300)] for t in frames]
+        th.join(300)
+        assert not th.is_alive(), "a launch wedged"
+        assert not errs, errs
+        assert all(g == det for g in got)
+        assert crcs and all(c == want for c in crcs)
+        assert lz4_torch.launches - l0 == eng.compress_stats["native_rounds"]
+    finally:
+        prov.close()
+
+
 class _DetProvider(native.CpuCodecProvider):
     """The deterministic-writer oracle: the CPU provider with lz4 on the
     native insert-all encoder (the kernel's bytes)."""
@@ -407,12 +451,66 @@ def test_engine_compress_route_on_card(card):
                                      1_700_000_000_000)
         eng = prov._engine
         assert eng.compress_stats["launches"] == 1
+        assert eng.compress_stats["native_rounds"] == 1
         assert not any(eng.compress_stats[k] for k in (
             "cpu_jobs", "warmup_miss_jobs", "routed_cpu_jobs", "shed_jobs"))
         assert lz4_torch.d2h_bytes - d0 < sum(len(w) for w in wire) + 8192
     finally:
         prov.close()
     assert lz4_torch.device_kernel_count() == 0
+
+
+def test_compress_round_beside_a_busy_thread_on_card(card):
+    """A round of 64 x 16 KB through the engine's compress route while a
+    pure-Python thread spins beside it: frames == the deterministic
+    encoder's, one LZ4 launch and no CRC launch, and the wall time the
+    governor charges the round (packing and launch, then readback and
+    frames) stays under 5 ms.  A thread that gives the GIL up beside the
+    spinner waits the interpreter's switch interval (5 ms) to take it
+    back: the round's native calls keep it while they need no wait."""
+    import threading
+    from librdkafka_tpu_torch.ops import lz4_torch
+    rng = np.random.default_rng(16)
+    words = [b"%06d:%s " % (i, b"ab" * (i % 7)) for i in range(4096)]
+    bufs = [b"".join(rng.choice(words, 1200).tolist())[:16384]
+            for _ in range(64)]
+    assert all(len(b) == 16384 for b in bufs)
+    prov = GpuCodecProvider(min_batches=1, governor=False,
+                            compress_device=True)
+    stop = threading.Event()
+
+    def spin():
+        n = 0
+        while not stop.is_set():
+            n += 1
+
+    try:
+        assert prov.wait_warm(300)
+        eng = prov._get_engine()
+        # the first round grows the rings and the lane's buffers
+        eng.submit_compress(bufs, window=False).result(120)
+        spinner = threading.Thread(target=spin, name="gil-spin")
+        spinner.start()
+        try:
+            c0 = dict(eng.compress_stats)
+            l0, k0 = lz4_torch.launches, crc.launches
+            got = eng.submit_compress(bufs, window=False).result(120)
+            c1 = dict(eng.compress_stats)
+        finally:
+            stop.set()
+            spinner.join(10)
+        assert not spinner.is_alive()
+        assert [bytes(f) for f in got] == native.lz4f_compress_many(
+            bufs, deterministic=True)
+        assert lz4_torch.launches == l0 + 1 and crc.launches == k0
+        d = {k: c1[k] - c0[k] for k in ("launches", "native_rounds",
+                                        "launch_wall_ns",
+                                        "readback_wall_ns")}
+        print(f"round beside a busy thread: {d}")
+        assert d["launches"] == d["native_rounds"] == 1, d
+        assert d["launch_wall_ns"] + d["readback_wall_ns"] < 5e6, d
+    finally:
+        prov.close()
 
 
 # ------------------------------------------------ Producer -> mock -> Consumer --
@@ -500,6 +598,7 @@ def test_client_device_compress_route_on_card(card):
     assert crcs == 0 and lz4s > 0
     comp = eng["compress"]
     assert comp["launches"] > 0 and comp["fused_crc"] > 0
+    assert comp["native_rounds"] == comp["launches"]
     assert not any(comp[k] for k in ("cpu_jobs", "warmup_miss_jobs",
                                      "routed_cpu_jobs", "shed_jobs"))
 

@@ -12,7 +12,7 @@ from librdkafka_tpu.models import codec_step as jax_step
 from librdkafka_tpu.ops import lz4_jax
 from librdkafka_tpu_torch.models import codec_step as port_step
 from librdkafka_tpu_torch.ops import cpu as native
-from librdkafka_tpu_torch.ops import lz4_torch
+from librdkafka_tpu_torch.ops import crc32c_torch, lz4_torch
 from librdkafka_tpu_torch.ops.packing import (FrameBlob, lz4f_frame,
                                               pad_right)
 from librdkafka_tpu_torch.utils.crc import crc32c
@@ -125,14 +125,129 @@ def test_plan_lz4_layout():
     lens = [0, 5, 65536, 70_000, 17]
     plan = lz4_torch.plan_lz4(lens)
     assert plan.spans == [(0, 0), (0, 1), (1, 1), (2, 2), (4, 1)]
-    assert plan.lens.tolist() == [5, 65536, 65536, 70_000 - 65536, 17]
-    assert (plan.row_offs % 16 == 0).all()
+    assert plan.lens == [5, 65536, 65536, 70_000 - 65536, 17]
+    assert all(o % 16 == 0 for o in plan.row_offs)
     # each buffer starts 16-byte aligned; its blocks are back to back
-    assert plan.row_offs.tolist() == [0, 16, 16 + 65536, 16 + 2 * 65536,
-                                      16 + 65536 + 70_000]
+    assert plan.row_offs == [0, 16, 16 + 65536, 16 + 2 * 65536,
+                             16 + 65536 + 70_000]
     assert plan.N == 65536
     assert plan.flat_bytes == 16 + 65536 + 70_000 + 32
     assert plan.nbytes == plan.flat_bytes + 8 * 5 + 4 * 6
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_plan_lz4_equals_array_formulation(seed):
+    """The plan, walked buffer by buffer, against the same plan in array
+    form: block lengths and offsets, width, output bound, slot bytes."""
+    rng = np.random.default_rng(seed)
+    buf_lens = rng.choice([0, 1, 15, 16, 17, 255, 65535, 65536, 65537,
+                           200_000], 40)
+    plan = lz4_torch.plan_lz4(buf_lens)
+    block = 65536
+    padded = (buf_lens + 15) & ~15
+    offs = np.cumsum(padded) - padded
+    lens = np.concatenate([np.minimum(block, n - np.arange(0, n, block))
+                           for n in buf_lens if n])
+    within = np.concatenate([np.arange(0, n, block) for n in buf_lens if n])
+    owner = np.repeat(np.arange(len(buf_lens)), -(-buf_lens // block))
+    assert plan.lens == lens.tolist()
+    assert plan.row_offs == (offs[owner] + within).tolist()
+    assert plan.N == int((lens.max() + 15) & ~15)
+    assert plan.cap == int(lens.sum() + lens.size * 16 + (lens // 255).sum())
+    assert plan.flat_bytes == int(padded.sum())
+    assert plan.out_words == 1 + 3 * lens.size + -(-lens.size // 2)
+
+
+def _slot_reference(plan, bufs) -> bytes:
+    """The slot a round's pack must write, from its plan alone: each
+    buffer and zeros up to its 16-byte padding, then the blocks' row
+    offsets (int64) and lengths (int32, one zero more for an odd count)."""
+    parts = []
+    for b in bufs:
+        parts += [bytes(b), bytes(-len(b) & 15)]
+    lens = plan.lens + [0] * (plan.B % 2)
+    return (b"".join(parts) + np.array(plan.row_offs, np.int64).tobytes()
+            + np.array(lens, np.int32).tobytes())
+
+
+def _packed(sizes, seed=7):
+    """Random buffers of ``sizes``, their plan, and the bytes that
+    pack_lz4 wrote into a slot first filled with other bytes."""
+    rng = np.random.default_rng(seed)
+    bufs = [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in sizes]
+    plan = lz4_torch.plan_lz4([len(b) for b in bufs])
+    slot = crc32c_torch.Slot(crc32c_torch.slot_bucket(plan.nbytes), pin=False)
+    slot.host.fill_(0xA5)
+    lz4_torch.pack_lz4(slot, plan, bufs)
+    return bufs, plan, slot.host.numpy()[:plan.nbytes].tobytes()
+
+
+_PACK_CASES = {
+    "empty": [0, 0, 0],
+    "one_byte": [1],
+    "15_16_17": [15, 16, 17],
+    "64k": [65536],
+    "2x64k": [2 * 65536],
+    "64k_plus_1": [65537],
+    "mixed64": np.random.default_rng(64).choice(
+        [0, 1, 15, 16, 17, 1000, 65535, 65536, 65537, 140_000], 64).tolist(),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_PACK_CASES))
+def test_pack_lz4_equals_plan_layout(case):
+    """The native pack writes, byte for byte, the slot the plan lays out:
+    each buffer 16-byte aligned with zero padding, then the metadata."""
+    bufs, plan, got = _packed(_PACK_CASES[case])
+    assert len(got) == plan.nbytes
+    assert got == _slot_reference(plan, bufs)
+
+
+@pytest.mark.parametrize("over", [False, True], ids=["below_cut", "over_cut"])
+def test_pack_lz4_either_side_of_the_release_cut(monkeypatch, over):
+    """A round of more than PACK_RELEASE_BYTES is packed by the binding
+    that gives the GIL up, a smaller one by the one that keeps it; both
+    write the plan's layout."""
+    held, released = lz4_torch._packers()
+    used = []
+
+    def tally(name, fn):
+        return lambda *a: (used.append(name), fn(*a))[1]
+
+    monkeypatch.setattr(lz4_torch, "_pack_fns",
+                        (tally("held", held), tally("released", released)))
+    cut = lz4_torch.PACK_RELEASE_BYTES
+    sizes = ([1 << 20] * (cut >> 20) + [65537, 3] if over
+             else [1 << 20] * ((cut >> 20) - 1) + [17])
+    bufs, plan, got = _packed(sizes)
+    assert (plan.nbytes > cut) == over
+    assert used == ["released" if over else "held"]
+    assert got == _slot_reference(plan, bufs)
+
+
+def test_pack_lz4_two_chunk_round(monkeypatch):
+    """A round the engine cuts into two launches: each chunk's slot is
+    the plan's layout of its own buffers."""
+    from librdkafka_tpu_torch.ops.engine import AsyncOffloadEngine
+    monkeypatch.setattr(crc32c_torch, "LAUNCH_BYTES", 250_000)
+    sizes = [70_000, 90_000, 65536, 1, 150_000, 17]
+    chunks = AsyncOffloadEngine._chunks(np.array(sizes, np.int64))
+    assert len(chunks) == 2, chunks
+    for a, b in chunks:
+        bufs, plan, got = _packed(sizes[a:b], seed=a)
+        assert got == _slot_reference(plan, bufs)
+
+
+def test_pack_lz4_refuses_what_does_not_fit():
+    plan = lz4_torch.plan_lz4([100, 200])
+    slot = crc32c_torch.Slot(crc32c_torch.slot_bucket(plan.nbytes), pin=False)
+    with pytest.raises(ValueError):        # a buffer the plan did not see
+        lz4_torch.pack_lz4(slot, plan, [b"x" * 100, b"y" * 199])
+    with pytest.raises(ValueError):
+        lz4_torch.pack_lz4(slot, plan, [b"x" * 100])
+    small = lz4_torch.plan_lz4([2 << 20])
+    with pytest.raises(ValueError):        # more than the slot holds
+        lz4_torch.pack_lz4(slot, small, [bytes(2 << 20)])
 
 
 def test_warm_registry_cpu():
