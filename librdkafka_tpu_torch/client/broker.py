@@ -195,7 +195,7 @@ class _PendingFetch:
     delivery) runs at resolve time — strictly FIFO per broker, so
     per-partition delivery order is preserved exactly."""
 
-    __slots__ = ("entry", "crc_ticket", "crc_infos",
+    __slots__ = ("entry", "crc_ticket", "crc_infos", "crc_bytes",
                  "legacy_ticket", "legacy_owners", "dec_tickets",
                  "t_submit_ns")
 
@@ -203,6 +203,7 @@ class _PendingFetch:
         self.entry = entry          # (tp, pres, batches, fo, ver)
         self.crc_ticket = None      # v2 batch-CRC (crc32c) ticket
         self.crc_infos = ()         # batch infos in crc_ticket order
+        self.crc_bytes = 0          # bytes of the v2 regions checked
         self.legacy_ticket = None   # MsgVer0/1 zlib-poly CRC ticket
         self.legacy_owners = ()     # (offset, wanted_crc) per region
         self.dec_tickets = ()       # [(codec, items, ticket)]
@@ -447,6 +448,9 @@ class Broker:
         self.c_wakeups = self.c_idle_wakeups = self.c_idle_waits = 0
         self.c_woke = dict.fromkeys(PASS_WOKE, 0)
         self.c_ops = dict.fromkeys(PASS_OPS, 0)
+        # bytes of fetched v2 batches whose CRC32C the card (crc_rows) or
+        # the host checked (CPU_ACCOUNTING.md)
+        self.c_fetch_crc_bytes_device = self.c_fetch_crc_bytes_host = 0
         # KIP-227 incremental fetch session with this broker
         # (client/fetch_session.py); torn down on disconnect
         from .fetch_session import FetchSession
@@ -1105,12 +1109,26 @@ class Broker:
             self.rk.dbg("broker", f"{self.name}: unknown corrid {corrid}")
             return
         self.c_rx += 1
-        if req.api == ApiKey.Fetch:
-            # + frame length prefix: count what crossed the wire
-            self.c_fetch_rx_bytes += len(payload) + 4
         self._req_timeouts_pending = 0  # connection is alive
         if req.ts_sent:
             self.rtt_avg.add((time.monotonic() - req.ts_sent) * 1e6)
+        if req.api == ApiKey.Fetch:
+            # + frame length prefix: count what crossed the wire
+            self.c_fetch_rx_bytes += len(payload) + 4
+            tally = self._tally
+            if tally is not None:
+                # the fetch response's parse, CRC tickets, decompress
+                # and delivery: the consumer's, not the ack path's
+                prev = tally.switch("fetch_recv")
+                try:
+                    self._answer(req, payload)
+                finally:
+                    tally.switch(prev)
+                return
+        self._answer(req, payload)
+
+    def _answer(self, req: Request, payload: bytes):
+        """Parse a response and hand it to its request's callback."""
         try:
             _, body = apis.parse_response(req.api, payload,
                                           version=req.version)
@@ -2247,6 +2265,7 @@ class Broker:
             if batches:
                 regions = [b[3][proto.V2_OF_Attributes:]
                            for b in batches if b[2] >= fo]
+                pend.crc_bytes = sum(map(len, regions))
                 pend.crc_infos = [b[0] for b in batches if b[2] >= fo]
             else:
                 # legacy MsgVer0/1 blobs: per-message zlib CRC (reference
@@ -2280,6 +2299,10 @@ class Broker:
         tp, pres, batches, fo, ver = pend.entry
         if pend.crc_ticket is not None:
             crcs = pend.crc_ticket.result(60.0)
+            if getattr(pend.crc_ticket, "on_device", False):
+                self.c_fetch_crc_bytes_device += pend.crc_bytes
+            else:
+                self.c_fetch_crc_bytes_host += pend.crc_bytes
             if _trace.enabled:
                 # submit -> resolve: the verify's share of the pipeline
                 _trace.complete("fetch", "crc_verify", pend.t_submit_ns,

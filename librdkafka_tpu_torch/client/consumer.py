@@ -14,6 +14,7 @@ from typing import Optional
 
 from collections import deque
 
+from ..obs import trace as _trace
 from ..protocol import proto
 from ..protocol.proto import ApiKey
 from .broker import Request
@@ -393,6 +394,15 @@ class Consumer:
             self._cur = None
 
     def poll(self, timeout: float = 1.0) -> Optional[Message]:
+        if not _trace.enabled:
+            return self._poll(timeout)
+        c0 = time.thread_time_ns()
+        try:
+            return self._poll(timeout)
+        finally:
+            self._rk.fetch_cpu_ns += time.thread_time_ns() - c0
+
+    def _poll(self, timeout: float) -> Optional[Message]:
         # fast path: drain already-fetched batches without touching the
         # op queue (the per-message consume budget); the cgrp tick
         # (max.poll bookkeeping, rebalance callbacks) is TIME-gated to
@@ -474,6 +484,15 @@ class Consumer:
         """Batch consume (reference: rd_kafka_consume_batch_queue).
         Drains already-fetched batches without per-message clock reads
         or op-queue round trips; blocks via poll() only while short."""
+        if not _trace.enabled:
+            return self._consume(num_messages, timeout)
+        c0 = time.thread_time_ns()
+        try:
+            return self._consume(num_messages, timeout)
+        finally:
+            self._rk.fetch_cpu_ns += time.thread_time_ns() - c0
+
+    def _consume(self, num_messages: int, timeout: float) -> list[Message]:
         cgrp = self._rk.cgrp
         if cgrp is not None:
             cgrp.poll_tick()
@@ -491,7 +510,7 @@ class Consumer:
             remain = deadline - time.monotonic()
             if remain <= 0:
                 break
-            m = self.poll(remain)
+            m = self._poll(remain)
             if m is None:
                 break
             out.append(m)

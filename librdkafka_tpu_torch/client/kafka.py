@@ -258,6 +258,9 @@ class Kafka:  # lint: ok shared-state
         self._outq_cond = new_cond("kafka.msg_cnt", self._msg_cnt_lock)
         self.cgrp = None                       # set by Consumer
         self.consumer = None                   # back-ref set by Consumer
+        # thread CPU of the consumer's poll() and consume() calls, ns,
+        # counted only while tracing (CPU_ACCOUNTING.md)
+        self.fetch_cpu_ns = 0
         self.interceptors = conf.get("interceptors") or None
         self.mock_cluster = None
         self.stats = None                      # StatsCollector, set below

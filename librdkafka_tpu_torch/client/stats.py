@@ -129,6 +129,10 @@ class StatsCollector:
                 "idle_waits": b.c_idle_waits,
                 "woke": dict(b.c_woke),
                 "ops": dict(b.c_ops),
+                # fetched v2 bytes whose CRC32C the card or the host
+                # checked
+                "fetch_crc_bytes_device": b.c_fetch_crc_bytes_device,
+                "fetch_crc_bytes_host": b.c_fetch_crc_bytes_host,
                 # latency decomposition (STATISTICS.md broker window stats)
                 "rtt": b.rtt_avg.rollover(),
                 "outbuf_latency": b.outbuf_avg.rollover(),
@@ -287,5 +291,11 @@ class StatsCollector:
                         len(rk.txnmgr._registered),
                     "txn_coordinator": (rk.txnmgr.coord_id
                                         if rk.txnmgr.coord_id is not None
-                                        else -1)})
+                                        else -1),
+                    # the port's transaction counters (CPU_ACCOUNTING.md)
+                    "txn_begins": rk.txnmgr.begins,
+                    "txn_commits": rk.txnmgr.commits,
+                    "txn_aborts": rk.txnmgr.aborts,
+                    "txn_commit_wall_ns": rk.txnmgr.commit_wall_ns,
+                    "txn_cpu_ns": rk.txnmgr.cpu_ns})
         return json.dumps(blob)

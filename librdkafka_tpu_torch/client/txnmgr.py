@@ -40,6 +40,7 @@ from typing import Optional, TYPE_CHECKING
 from ..protocol.proto import ApiKey
 from ..analysis.locks import new_cond, new_rlock
 from ..analysis.races import shared
+from ..obs import trace as _trace
 from .broker import Request
 from .errors import Err, KafkaError, KafkaException
 from .queue import Op, OpType
@@ -91,6 +92,9 @@ class TransactionManager:
         self.pid = -1
         self.epoch = -1
         self.coord_id: Optional[int] = None
+        # (key_type, key) -> the coordinator's node id, until a request
+        # to it fails retriably
+        self._coords: dict[tuple[int, str], int] = {}
         self._lock = new_rlock("txn.mgr")
         # notified on AddPartitionsToTxn completion and fatal errors;
         # retriable backoffs ride timed waits on it (no sleep-polling
@@ -104,6 +108,22 @@ class TransactionManager:
         # offsets staged via send_offsets_to_transaction (group ids,
         # for the empty-txn EndTxn skip decision)
         self._sent_offsets = False
+        # transactions begun, committed and aborted, and the wall time
+        # of the commits that returned, ns (always counted); the calling
+        # thread's CPU inside the transaction API and its coordinator
+        # requests, ns (tracing only; CPU_ACCOUNTING.md)
+        self.begins = self.commits = self.aborts = 0
+        self.commit_wall_ns = 0
+        self.cpu_ns = 0
+        self._t_register = 0    # AddPartitionsToTxn sent (trace clock)
+
+    def _cpu0(self) -> int:
+        """The calling thread's CPU clock while tracing, else 0."""
+        return time.thread_time_ns() if _trace.enabled else 0
+
+    def _cpu_add(self, c0: int) -> None:
+        if c0:
+            self.cpu_ns += time.thread_time_ns() - c0
 
     # ------------------------------------------------------- state helpers --
     def _set_state(self, state: str) -> None:
@@ -186,8 +206,16 @@ class TransactionManager:
         return b
 
     def _coord_broker(self, deadline: float, *, key: str, key_type: int):
-        """Resolve + return the coordinator broker, demanding a
-        connection under sparse connections. Blocks (app thread)."""
+        """The coordinator broker, demanding a connection under sparse
+        connections: the one found last for ``key`` while no request to
+        it has failed retriably (as rd_kafka_txn_coord_query keeps
+        rk_eos.txn_coord), else resolved by FindCoordinator. Blocks (app
+        thread)."""
+        with self.rk._brokers_lock:
+            cb = self.rk.brokers.get(self._coords.get((key_type, key)))
+        if cb is not None:
+            cb.schedule_connect()
+            return cb
         while True:
             remain = deadline - time.monotonic()
             if remain <= 0:
@@ -207,6 +235,7 @@ class TransactionManager:
                     continue
                 if key_type == 1:
                     self.coord_id = coord_id
+                self._coords[(key_type, key)] = coord_id
                 cb.schedule_connect()
                 return cb
             code = (err.code if err is not None
@@ -256,7 +285,9 @@ class TransactionManager:
                 raise KafkaException(self._fatal(
                     code, f"{what}: {code.name}"))
             if code in RETRIABLE:
-                self.coord_id = None      # NOT_COORDINATOR: re-resolve
+                # NOT_COORDINATOR: re-resolve
+                self.coord_id = None
+                self._coords.pop((1, self.transactional_id), None)
                 self._backoff(deadline)
                 continue
             # anything else: the transaction can only be aborted
@@ -280,12 +311,16 @@ class TransactionManager:
         rd_kafka_init_transactions)."""
         self._require("UNINIT", "READY")
         deadline = self._deadline(timeout)
-        resp = self._txn_request(
-            ApiKey.InitProducerId,
-            {"transactional_id": self.transactional_id,
-             "transaction_timeout_ms":
-                 self.rk.conf.get("transaction.timeout.ms")},
-            deadline, "init_transactions")
+        c0 = self._cpu0()
+        try:
+            resp = self._txn_request(
+                ApiKey.InitProducerId,
+                {"transactional_id": self.transactional_id,
+                 "transaction_timeout_ms":
+                     self.rk.conf.get("transaction.timeout.ms")},
+                deadline, "init_transactions")
+        finally:
+            self._cpu_add(c0)
         with self._lock:
             self.pid = resp["producer_id"]
             self.epoch = resp["producer_epoch"]
@@ -303,13 +338,19 @@ class TransactionManager:
 
     def begin_transaction(self) -> None:
         self._require("READY")
+        t0 = _trace.now() if _trace.enabled else 0
+        c0 = self._cpu0()
         with self._lock:
             self._registered.clear()
             self._pending.clear()
             self._abortable_reason = None
             self._sent_offsets = False
             self._set_state("IN_TXN")
+        self.begins += 1
         self.rk.dbg("eos", "transaction begun")
+        if t0:
+            self._cpu_add(c0)
+            _trace.complete("txn", "begin", t0)
 
     def send_offsets_to_transaction(self, offsets, group_metadata,
                                     timeout: float = -1) -> None:
@@ -323,6 +364,19 @@ class TransactionManager:
             raise KafkaException(Err._INVALID_ARG,
                                  "group metadata must carry a group id")
         deadline = self._deadline(timeout)
+        t0 = _trace.now() if _trace.enabled else 0
+        c0 = self._cpu0()
+        try:
+            self._send_offsets(offsets, group_id, deadline)
+        finally:
+            if t0:
+                self._cpu_add(c0)
+                _trace.complete("txn", "send_offsets", t0,
+                                {"group": group_id,
+                                 "partitions": len(offsets)})
+
+    def _send_offsets(self, offsets, group_id: str, deadline: float) -> None:
+        """AddOffsetsToTxn, then TxnOffsetCommit until the deadline."""
         self._txn_request(
             ApiKey.AddOffsetsToTxn,
             {"transactional_id": self.transactional_id,
@@ -366,6 +420,7 @@ class TransactionManager:
                         self._abortable_reason = kerr
                         self._set_state("ABORTABLE_ERROR")
                 raise KafkaException(kerr)
+            self._coords.pop((0, group_id), None)
             self._backoff(deadline)
 
     def commit_transaction(self, timeout: float = -1) -> None:
@@ -373,12 +428,30 @@ class TransactionManager:
         (reference: rd_kafka_commit_transaction)."""
         self._require("IN_TXN")
         deadline = self._deadline(timeout)
+        t0 = time.monotonic_ns()
+        c0 = self._cpu0()
+        parts = {}
+        try:
+            self._commit(deadline, parts)
+        finally:
+            self._cpu_add(c0)
+            if _trace.enabled:
+                _trace.complete("txn", "commit", t0, parts)
+        self.commits += 1
+        self.commit_wall_ns += time.monotonic_ns() - t0
+
+    def _commit(self, deadline: float, parts: dict) -> None:
+        """Flush, then EndTxn(committed=True); ``parts`` gets the wall
+        time of each, ns (``flush_ns``, ``end_txn_ns``)."""
         # all outstanding messages must be delivered before the commit
         # marker is written — including batches still inside the codec
         # offload pipeline (their tickets resolve through the normal
         # flush path)
         remain = max(0.1, deadline - time.monotonic())
-        if self.rk.flush(remain) != 0:
+        t_flush = time.monotonic_ns()
+        flushed = self.rk.flush(remain)
+        parts["flush_ns"] = time.monotonic_ns() - t_flush
+        if flushed != 0:
             raise KafkaException(KafkaError(
                 Err._TIMED_OUT,
                 "commit_transaction: outstanding messages did not "
@@ -395,6 +468,7 @@ class TransactionManager:
             empty = (not self._registered and not self._pending
                      and not self._sent_offsets)
             self._set_state("COMMITTING")
+        t_end = time.monotonic_ns()
         try:
             if not empty:
                 self._txn_request(
@@ -403,6 +477,7 @@ class TransactionManager:
                      "producer_id": self.pid,
                      "producer_epoch": self.epoch, "committed": True},
                     deadline, "commit_transaction")
+            parts["end_txn_ns"] = time.monotonic_ns() - t_end
         except KafkaException as e:
             with self._lock:
                 if self.state == "COMMITTING":
@@ -425,6 +500,17 @@ class TransactionManager:
         rd_kafka_abort_transaction)."""
         self._require("IN_TXN", "ABORTABLE_ERROR", "COMMITTING")
         deadline = self._deadline(timeout)
+        t0 = _trace.now() if _trace.enabled else 0
+        c0 = self._cpu0()
+        try:
+            self._abort(deadline)
+        finally:
+            if t0:
+                self._cpu_add(c0)
+                _trace.complete("txn", "abort", t0)
+        self.aborts += 1
+
+    def _abort(self, deadline: float) -> None:
         with self._lock:
             self._set_state("ABORTING")
         # queued-but-unsent messages will never be wanted: purge them
@@ -548,6 +634,7 @@ class TransactionManager:
             return
         if not b.is_up():
             b.schedule_connect()
+        self._t_register = _trace.now() if _trace.enabled else 0
         by_topic: dict[str, list[int]] = {}
         for t, p in batch:
             by_topic.setdefault(t, []).append(p)
@@ -561,6 +648,10 @@ class TransactionManager:
             cb=self._handle_add_partitions))
 
     def _handle_add_partitions(self, err, resp):
+        if self._t_register and _trace.enabled:
+            # sent on the main thread, answered on the coordinator's
+            _trace.complete("txn", "add_partitions", self._t_register,
+                            {"error": err is not None})
         with self._lock:
             self._register_inflight = False
             self._cv.notify_all()           # wakes abort's quiescence wait

@@ -89,14 +89,17 @@ from .packing import LZ4F_BLOCKSIZE, lz4f_frame, next_pow2
 
 class Ticket:
     """Handle for one submitted job; resolves to a uint32 ndarray of
-    per-buffer checksums (or raises the launch's exception)."""
+    per-buffer checksums (or raises the launch's exception).
+    ``on_device`` is True once a CRC job's checksums came back from the
+    card (a launch), False where the CPU served them."""
 
-    __slots__ = ("_ev", "_result", "_exc")
+    __slots__ = ("_ev", "_result", "_exc", "on_device")
 
     def __init__(self):
         self._ev = threading.Event()
         self._result = None
         self._exc: Optional[BaseException] = None
+        self.on_device = False
 
     def done(self) -> bool:
         return self._ev.is_set()
@@ -1869,6 +1872,7 @@ class AsyncOffloadEngine:
         pos = 0
         for j in rec.jobs:
             n = len(j.lens)
+            j.ticket.on_device = True
             j.ticket._complete(crcs[pos:pos + n])
             pos += n
         self.stage_reap.add((time.perf_counter() - t_reap) * 1e6)

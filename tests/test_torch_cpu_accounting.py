@@ -30,8 +30,8 @@ BACKENDS = {
     "gpu": {"compression.backend": "gpu", "gpu.device": "cpu",
             "gpu.launch.min.batches": 1},
 }
-PASS_PHASES = {"idle", "ops", "produce", "fetch", "send", "recv", "scan",
-               "wait"}
+PASS_PHASES = {"idle", "ops", "produce", "fetch", "fetch_recv", "send",
+               "recv", "scan", "wait"}
 
 
 def _producer(backend: str, **extra):
@@ -372,7 +372,7 @@ def test_port_stats_carry_the_documented_port_only_fields():
         p.close()
     fields = port_only.stats_fields()
     assert set(fields) == {"brokers.{name}", "codec_engine",
-                           "codec_engine.compress"}
+                           "codec_engine.compress", "eos"}
     port_only.strip_stats(blob)          # asserts every field present
     for b in blob["brokers"].values():
         assert set(b["woke"]) == set(PASS_WOKE)

@@ -22,6 +22,7 @@ import pytest
 
 import librdkafka_tpu as _ref
 import librdkafka_tpu_torch as _port
+import torch_port_only as port_only
 from librdkafka_tpu.client import conf as _ref_conf
 from librdkafka_tpu.client import consumer as _ref_consumer
 from librdkafka_tpu.client import errors as _ref_errors
@@ -438,11 +439,22 @@ def test_stats_blob_carries_txn_state():
             p.begin_transaction()
             p.produce("txn", b"s", partition=0)
             p.commit_transaction(30)
+            # a blob begun after the commit: the first one appended after
+            # it may have been built while the commit returned
+            n0 = len(blobs)
             deadline = time.monotonic() + 5
-            while time.monotonic() < deadline and not blobs:
+            while time.monotonic() < deadline and len(blobs) <= n0 + 1:
                 p.poll(0.1)
             p.close()
             eos = blobs[-1]["eos"]
+            if pkg.port:
+                # the port's own transaction counters (CPU_ACCOUNTING.md)
+                # aside, after checking them
+                assert eos["txn_begins"] == eos["txn_commits"] == 1
+                assert eos["txn_aborts"] == 0
+                assert eos["txn_commit_wall_ns"] > 0
+                assert eos["txn_cpu_ns"] == 0          # untraced
+                eos = port_only.strip_stats({"eos": eos})["eos"]
             return [sorted(eos), eos["txn_state"] in (
                 "READY", "IN_TXN", "COMMITTING"), eos["transactional_id"],
                 eos["producer_id"] >= 0 and eos["producer_epoch"] >= 0]
